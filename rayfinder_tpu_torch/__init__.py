@@ -4,10 +4,11 @@ kernels for NVIDIA Hopper (sm_90a).
 A port of `rayfinder_tpu` (JAX/Pallas on TPU). Module names follow the JAX
 package so each counterpart is easy to find. The hot path is the fused path
 regeneration loop (`render.pathtracer.accumulate_samples_regen`), driven by
-three CUDA kernels built at first use from `csrc/` (see `ops/_build.py`):
-closest hit, any hit and the persistent trace/sky/regenerate kernel. Every
-kernel has a plain PyTorch version beside it; a wrapper takes it only for
-tensors that lie on the CPU.
+CUDA kernels built at first use from `csrc/` (see `ops/_build.py`): closest
+hit, any hit and the persistent trace/sky/regenerate kernel, with its
+in-kernel-shaded (`inkernel=True`) and multi-segment (`segs=K`) forms for
+the loop's two other routes. Every kernel has a plain PyTorch version beside
+it; a wrapper takes it only for tensors that lie on the CPU.
 
 Quick start::
 

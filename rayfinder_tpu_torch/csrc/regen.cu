@@ -16,7 +16,8 @@
 //      blue-noise base + R2 offset, until the samples run out (:323-356).
 // The sky is _sky_rows with acosf in place of the TPU's acos polynomial.
 // Arithmetic follows the plain torch version (rayfinder_tpu_torch/ops/
-// regen.py trace_regen_reference) operation by operation.
+// regen.py trace_regen_reference) operation by operation; the per-lane
+// pieces it shares with K4 and K5 are in path.cuh.
 //
 // What bounds it: the BVH walks (divergent, latency-bound node and triangle
 // loads, see traverse.cuh); lanes of one warp also run different numbers of
@@ -24,95 +25,9 @@
 // kernel saves over a launch per segment. Later changes: warp-coherent
 // traversal, lane sorting, persistent work queues.
 
-#include "traverse.cuh"
-
-namespace rf {
-
-// Camera, sky and loop scalars; layout mirrored by ctypes in ops/regen.py.
-// Outside the anonymous namespace: the exported rf_trace_regen takes it.
-struct RegenParams {
-  float cam_origin[3];
-  float lower_left[3];
-  float horizontal[3];
-  float vertical[3];
-  float right[3];
-  float up[3];
-  float lens_radius;
-  float t_max;
-  float sun[3];
-  float sky_radiance[3];
-  float perez[27];  // 3 channels x 9 params
-  float inv_w;
-  float inv_h;
-  int frame_base;
-  int spp;
-  int num_frames;
-};
-
-}  // namespace rf
+#include "path.cuh"
 
 namespace {
-
-constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi)
-constexpr float kA1 = 0.754877686500549316f;    // float32 R2 constants
-constexpr float kA2 = 0.569840312004089355f;
-
-__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
-  return rf::min_nan(rf::max_nan(x, lo), hi);
-}
-
-// Animated blue noise of a sample (render/rng.py noise_of).
-__device__ __forceinline__ void noise_of(const rf::RegenParams& p, int sample, float nb0,
-                                         float nb1, float* nx, float* ny) {
-  const float n = static_cast<float>((p.frame_base + sample) % p.spp);
-  float rx = kA1 * n;
-  rx = rx - floorf(rx);
-  float ry = kA2 * n;
-  ry = ry - floorf(ry);
-  const float x = nb0 + rx;
-  const float y = nb1 + ry;
-  *nx = x - floorf(x);
-  *ny = y - floorf(y);
-}
-
-// Thin-lens primary ray (render/camera.py primary_ray).
-__device__ __forceinline__ void primary(const rf::RegenParams& p, float u, float v_tex, float nx,
-                                        float ny, rf::Vec3* o, rf::Vec3* d) {
-  const float ray_u = u + nx * p.inv_w;
-  const float ray_v = (1.0f - v_tex) + ny * p.inv_h;
-  const float r = sqrtf(nx);
-  const float theta = kTwoPi * ny;
-  const float lp0 = p.lens_radius * (r * cosf(theta));
-  const float lp1 = p.lens_radius * (r * sinf(theta));
-  const rf::Vec3 org{p.cam_origin[0] + (lp0 * p.right[0] + lp1 * p.up[0]),
-                     p.cam_origin[1] + (lp0 * p.right[1] + lp1 * p.up[1]),
-                     p.cam_origin[2] + (lp0 * p.right[2] + lp1 * p.up[2])};
-  const rf::Vec3 dd{p.lower_left[0] + ray_u * p.horizontal[0] + ray_v * p.vertical[0] - org.x,
-                    p.lower_left[1] + ray_u * p.horizontal[1] + ray_v * p.vertical[1] - org.y,
-                    p.lower_left[2] + ray_u * p.horizontal[2] + ray_v * p.vertical[2] - org.z};
-  const float norm = sqrtf(dd.x * dd.x + dd.y * dd.y + dd.z * dd.z);
-  *o = org;
-  *d = rf::Vec3{dd.x / norm, dd.y / norm, dd.z / norm};
-}
-
-// Perez sky radiance without the solar disk (sky/model.py sky_radiance_dir).
-__device__ __forceinline__ rf::Vec3 sky_radiance(const rf::RegenParams& p, rf::Vec3 d) {
-  const float cos_g = clamp_nan(d.x * p.sun[0] + d.y * p.sun[1] + d.z * p.sun[2], -1.0f, 1.0f);
-  const float cos_t = fabsf(clamp_nan(d.y, -1.0f, 1.0f));
-  const float gamma = acosf(cos_g);
-  const float cg2 = cos_g * cos_g;
-  const float zenith = sqrtf(cos_t);
-  float out[3];
-  for (int ch = 0; ch < 3; ++ch) {
-    const float* c = p.perez + 9 * ch;
-    const float exp_m = expf(c[4] * gamma);
-    const float mie = (1.0f + cg2) / powf(1.0f + c[8] * c[8] - 2.0f * c[8] * cos_g, 1.5f);
-    const float lhs = 1.0f + c[0] * expf(c[1] / (cos_t + 0.01f));
-    const float rhs = c[2] + c[3] * exp_m + c[5] * cg2 + c[6] * mie + c[7] * zenith;
-    out[ch] = p.sky_radiance[ch] * lhs * rhs;
-  }
-  return rf::Vec3{out[0], out[1], out[2]};
-}
 
 __global__ void trace_regen_kernel(
     rf::SceneView s, rf::RegenParams p, int n, const float* __restrict__ u_in,
@@ -138,35 +53,20 @@ __global__ void trace_regen_kernel(
   rf::Vec3 thr = rf::load3(thr_in, i);
   rf::Vec3 srad = rf::load3(srad_in, i);
   rf::Vec3 lrad = rf::load3(lrad_in, i);
-  const float u = u_in[i];
-  const float v_tex = v_in[i];
-  const float nb0 = noise_base[2 * i];
-  const float nb1 = noise_base[2 * i + 1];
+  const rf::Pixel px{u_in[i], v_in[i], noise_base[2 * i], noise_base[2 * i + 1]};
 
   // 1. Pending NEE light sample of the previous segment.
   const bool live = sample < nf;
-  const bool has_nee = live && (flag == 1 || flag == 2);
-  if (has_nee) {
-    const rf::Vec3 c = rf::load3(contrib_in, i);
-    float vis = 1.0f;
-    if (c.x != 0.0f || c.y != 0.0f || c.z != 0.0f) {
-      if (rf::any_hit(s, rf::load3(shadow_o, i), rf::load3(shadow_d, i), p.t_max)) vis = 0.0f;
-    }
-    srad = rf::Vec3{srad.x + c.x * vis, srad.y + c.y * vis, srad.z + c.z * vis};
+  if (live && (flag == 1 || flag == 2)) {
+    srad = rf::add_nee(s, p.t_max, srad, rf::load3(contrib_in, i), rf::load3(shadow_o, i),
+                       rf::load3(shadow_d, i));
   }
 
   // 2. Terminate after NEE: flush, finish the sample, regenerate.
   if (live && flag == 2) {
-    lrad = rf::Vec3{lrad.x + srad.x, lrad.y + srad.y, lrad.z + srad.z};
-    srad = rf::Vec3{0.0f, 0.0f, 0.0f};
+    rf::flush(&lrad, &srad);
     ++sample;
-    if (sample < nf) {
-      float nx, ny;
-      noise_of(p, sample, nb0, nb1, &nx, &ny);
-      primary(p, u, v_tex, nx, ny, &o, &d);
-      thr = rf::Vec3{1.0f, 1.0f, 1.0f};
-      bounce = 1;
-    }
+    rf::regenerate(p, px, sample, &o, &d, &thr, &bounce);
   }
 
   // 3. Trace to the next hit, consuming misses.
@@ -180,18 +80,9 @@ __global__ void trace_regen_kernel(
       tri_fin = tri;
       break;
     }
-    const rf::Vec3 sky = sky_radiance(p, d);
-    srad = rf::Vec3{srad.x + thr.x * sky.x, srad.y + thr.y * sky.y, srad.z + thr.z * sky.z};
-    lrad = rf::Vec3{lrad.x + srad.x, lrad.y + srad.y, lrad.z + srad.z};
-    srad = rf::Vec3{0.0f, 0.0f, 0.0f};
+    rf::fold_sky(rf::sky_radiance(p, d), thr, &srad, &lrad);
     ++sample;
-    if (sample < nf) {
-      float nx, ny;
-      noise_of(p, sample, nb0, nb1, &nx, &ny);
-      primary(p, u, v_tex, nx, ny, &o, &d);
-      thr = rf::Vec3{1.0f, 1.0f, 1.0f};
-      bounce = 1;
-    }
+    rf::regenerate(p, px, sample, &o, &d, &thr, &bounce);
   }
 
   sample_out[i] = sample;

@@ -1,6 +1,6 @@
 // Per-thread BVH traversal for NVIDIA Hopper (sm_90a): closest hit and
 // any hit, as device functions shared by the walk kernels (walk.cu) and the
-// persistent path kernel (regen.cu).
+// persistent path kernels (regen.cu, regen_shaded.cu, regen_segs.cu).
 //
 // Replaces the TPU's block-uniform cluster sweeps
 // (rayfinder_tpu/ops/pallas_walk.py: _closest_tile_sweep,
@@ -109,10 +109,11 @@ __device__ __forceinline__ bool ray_aabb(const SceneView& s, int node, Vec3 o,
   return !fail_xy && !fail_z && (tmin < t_max) && (tmax > 0.0f);
 }
 
-// Moller-Trumbore (wgsl:477-521, render/intersect.py ray_triangle).
-__device__ __forceinline__ bool ray_triangle(const SceneView& s, int tri, Vec3 o,
-                                             Vec3 d, float t_max, float* t_out) {
-  const float* p = s.tri_pos + 9ll * tri;
+// Moller-Trumbore (wgsl:477-521, render/intersect.py ray_triangle) on the
+// vertices (9 floats: v0, v1, v2). Returns whether the ray hits below t_max;
+// *t_out, *u_out, *v_out are valid where it does.
+__device__ __forceinline__ bool moller_trumbore(const float* p, Vec3 o, Vec3 d, float t_max,
+                                                float* t_out, float* u_out, float* v_out) {
   const Vec3 v0{p[0], p[1], p[2]};
   const Vec3 v1{p[3], p[4], p[5]};
   const Vec3 v2{p[6], p[7], p[8]};
@@ -127,8 +128,16 @@ __device__ __forceinline__ bool ray_triangle(const SceneView& s, int tri, Vec3 o
   const float v = inv_det * dot(d, q);
   const float t = inv_det * dot(e2, q);
   *t_out = t;
+  *u_out = u;
+  *v_out = v;
   return fabsf(det) >= kEpsilon && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
          u + v <= 1.0f && t > kEpsilon && t < t_max;
+}
+
+__device__ __forceinline__ bool ray_triangle(const SceneView& s, int tri, Vec3 o,
+                                             Vec3 d, float t_max, float* t_out) {
+  float u, v;
+  return moller_trumbore(s.tri_pos + 9ll * tri, o, d, t_max, t_out, &u, &v);
 }
 
 // One thread's near-first stack walk. Returns the leaf-order index of the

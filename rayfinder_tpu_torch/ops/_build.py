@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels of `csrc/`.
 
-The kernels are compiled at first use with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes. The library is
+The kernels are compiled at first use with nvcc for Hopper (sm_90a), one
+nvcc per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes. The library is
 named after a hash of the sources and the flags, under
 `rayfinder_tpu_torch/_build/`, and is rebuilt when either changes. Only the
 repository's own sources go in.
@@ -28,11 +29,12 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("walk.cu", "regen.cu")
-HEADERS = ("traverse.cuh",)
+SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu")
+HEADERS = ("traverse.cuh", "path.cuh", "shade.cuh")
+# Flags of each source's compile; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +42,9 @@ _I = ctypes.c_int
 # Scene arguments of every entry point: the six BVH planes, the triangle
 # positions, the triangle count.
 _SCENE_ARGTYPES = [_P] * 7 + [_I]
+# ... and of the in-kernel shade: triangle attributes, texture descriptors,
+# texels.
+_SHADE_ARGTYPES = [_P] * 3
 _ARGTYPES = {
     # ..., origin, direction, t_max, n, t, tri, visits, stream
     "rf_intersect_closest": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
@@ -47,6 +52,10 @@ _ARGTYPES = {
     "rf_intersect_any": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P],
     # ..., params, n, 14 lane inputs, 9 outputs, stream
     "rf_trace_regen": _SCENE_ARGTYPES + [_P, _I] + [_P] * 23 + [_P],
+    # ..., shade tables, params, n, 14 lane inputs, 11 outputs, stream
+    "rf_trace_regen_shaded": _SCENE_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25 + [_P],
+    # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
+    "rf_trace_regen_segs": _SCENE_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
 }
 
 _lock = threading.Lock()
@@ -78,19 +87,33 @@ def build_log_path() -> pathlib.Path:
 
 
 def _compile(target: pathlib.Path) -> None:
+    """Compile every source at once (one nvcc each), then link them."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    target.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        tmp = pathlib.Path(tmp_dir)
+        objects = [tmp / f"{pathlib.Path(s).stem}.o" for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / s)]
+                for s, obj in zip(SOURCES, objects)]
+        logs = [obj.with_suffix(".log") for obj in objects]
+        procs = []
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT))
+        results = [(cmd, proc.wait(), log.read_text())
+                   for cmd, proc, log in zip(cmds, procs, logs)]
+        if all(rc == 0 for _, rc, _ in results):
+            link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-o", str(tmp / "lib.so"), *map(str, objects)]
+            done = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, done.returncode, done.stdout + done.stderr))
+        target.with_suffix(".log").write_text(
+            "".join(" ".join(cmd) + "\n" + out for cmd, _, out in results))
+        failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+        if failed:
+            cmd, rc, out = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+        os.replace(tmp / "lib.so", target)
 
 
 def library() -> ctypes.CDLL:
@@ -125,11 +148,22 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) 
         raise ValueError(f"{name}: not contiguous")
 
 
+def _pointers(scene, device, tables) -> list:
+    """The data pointers of the scene's tensors named in `tables` ((name,
+    dtype, shape) each), after checking them."""
+    args = []
+    for name, dtype, shape in tables:
+        tensor = getattr(scene, name)
+        check(tensor, f"scene.{name}", dtype, shape, device)
+        args.append(tensor.data_ptr())
+    return args
+
+
 def scene_args(scene, device) -> list:
     """The scene's pointer and triangle-count arguments, after checking its
     tensors."""
     n, t = scene.num_nodes, scene.num_triangles
-    planes = (
+    return _pointers(scene, device, (
         ("bvh_aabb_min", torch.float32, (n, 3)),
         ("bvh_aabb_max", torch.float32, (n, 3)),
         ("bvh_tri_offset", torch.int32, (n,)),
@@ -137,13 +171,17 @@ def scene_args(scene, device) -> list:
         ("bvh_tri_count", torch.int32, (n,)),
         ("bvh_split_axis", torch.int32, (n,)),
         ("tri_positions", torch.float32, (t, 3, 3)),
-    )
-    args = []
-    for name, dtype, shape in planes:
-        tensor = getattr(scene, name)
-        check(tensor, f"scene.{name}", dtype, shape, device)
-        args.append(tensor.data_ptr())
-    return args + [t]
+    )) + [t]
+
+
+def shade_args(scene, device) -> list:
+    """The pointers of the scene's shading tables (triangle attributes,
+    texture descriptors, texels), after checking them."""
+    return _pointers(scene, device, (
+        ("tri_attrs", torch.float32, (scene.num_triangles, 25)),
+        ("tex_desc", torch.int32, (scene.tex_desc.shape[0], 3)),
+        ("texels", torch.int32, (scene.texels.shape[0],)),
+    ))
 
 
 def stream_of(device) -> int:

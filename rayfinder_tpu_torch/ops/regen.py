@@ -11,6 +11,9 @@ The kernel (csrc/regen.cu) runs one thread per lane. The plain version
 walk (render/traverse.py), one trace round at a time over the lanes still in
 flight. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
+
+The parameter block and the plain per-lane helpers (primaries, add_nee) are
+shared with K4 (ops/regen_shaded.py) and K5 (ops/regen_segs.py).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from ..render.camera import Camera, primary_ray
 from ..render.rng import noise_of
 from ..render.scene import DeviceScene
+from ..render.shade import FRAC_1_PI, SOLAR_COS_THETA_MAX, SOLAR_INV_PDF
 from ..render.traverse import intersect_any, intersect_closest
 from ..sky.model import SkyState, sky_radiance_dir
 from . import _build
@@ -31,7 +35,7 @@ __all__ = ["trace_regen", "trace_regen_reference"]
 
 
 class _RegenParams(ctypes.Structure):
-    """Mirror of RegenParams in csrc/regen.cu."""
+    """Mirror of RegenParams in csrc/path.cuh."""
 
     _fields_ = [
         ("cam_origin", ctypes.c_float * 3),
@@ -50,6 +54,12 @@ class _RegenParams(ctypes.Structure):
         ("frame_base", ctypes.c_int),
         ("spp", ctypes.c_int),
         ("num_frames", ctypes.c_int),
+        ("solar", ctypes.c_float * 3),
+        ("one_minus_cos_max", ctypes.c_float),
+        ("solar_inv_pdf", ctypes.c_float),
+        ("frac_1_pi", ctypes.c_float),
+        ("num_bounces", ctypes.c_int),
+        ("live_floor", ctypes.c_int),
     ]
 
 
@@ -57,7 +67,8 @@ def _floats(a, n):
     return (ctypes.c_float * n)(*np.asarray(a, np.float32).reshape(n).tolist())
 
 
-def _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max) -> _RegenParams:
+def _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
+            num_bounces=0, live_floor=0) -> _RegenParams:
     return _RegenParams(
         _floats(camera.origin, 3), _floats(camera.lower_left_corner, 3),
         _floats(camera.horizontal, 3), _floats(camera.vertical, 3),
@@ -66,7 +77,50 @@ def _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max) -> _Regen
         _floats(sky.sun_direction, 3), _floats(sky.sky_radiances, 3),
         _floats(sky.params, 27), float(inv_dims[0]), float(inv_dims[1]),
         int(frame_base), int(spp), int(num_frames),
+        _floats(sky.solar_radiances, 3),
+        float(np.float32(1.0) - SOLAR_COS_THETA_MAX), float(SOLAR_INV_PDF),
+        float(FRAC_1_PI), int(num_bounces), int(live_floor),
     )
+
+
+def lane_inputs(n, u, v_tex, noise_base, sample, bounce, flag, origin, direction,
+                thr, srad, lrad, shadow_o, shadow_d, contrib):
+    """(tensor, name, dtype, shape) of the lane inputs of K3 and K4, in the
+    order their C entry points take them."""
+    return (
+        (u, "u", torch.float32, (n,)),
+        (v_tex, "v_tex", torch.float32, (n,)),
+        (noise_base, "noise_base", torch.float32, (n, 2)),
+        (sample, "sample", torch.int32, (n,)),
+        (bounce, "bounce", torch.int32, (n,)),
+        (flag, "flag", torch.int32, (n,)),
+        (origin, "origin", torch.float32, (n, 3)),
+        (direction, "direction", torch.float32, (n, 3)),
+        (thr, "thr", torch.float32, (n, 3)),
+        (srad, "srad", torch.float32, (n, 3)),
+        (lrad, "lrad", torch.float32, (n, 3)),
+        (shadow_o, "shadow_o", torch.float32, (n, 3)),
+        (shadow_d, "shadow_d", torch.float32, (n, 3)),
+        (contrib, "contrib", torch.float32, (n, 3)),
+    )
+
+
+def primaries(camera, u, v_tex, noise_base, inv_dims, frame_base, spp, idx, sample):
+    """Fresh primary rays (origin, direction) of lanes idx for their sample
+    indices `sample` (plain versions)."""
+    noise = noise_of(noise_base[idx], frame_base, sample, spp)
+    return primary_ray(camera, u[idx], v_tex[idx], noise, inv_dims)
+
+
+def add_nee(scene, has_nee, srad, shadow_o, shadow_d, contrib, t_max):
+    """Resolve the pending NEE light samples (plain versions): where has_nee,
+    srad + contrib * visible, the shadow ray traced only where the
+    contribution is non-zero."""
+    occluded = torch.zeros(has_nee.shape[0], dtype=torch.bool, device=has_nee.device)
+    shadow = torch.nonzero(has_nee & (contrib != 0.0).any(dim=1))[:, 0]
+    occluded[shadow] = intersect_any(scene, shadow_o[shadow], shadow_d[shadow], t_max)
+    visible = torch.where(occluded, 0.0, 1.0)[:, None]
+    return torch.where(has_nee[:, None], srad + contrib * visible, srad)
 
 
 def trace_regen(
@@ -97,22 +151,8 @@ def trace_regen(
         )
     dev = u.device
     n = u.shape[0]
-    inputs = (
-        (u, "u", torch.float32, (n,)),
-        (v_tex, "v_tex", torch.float32, (n,)),
-        (noise_base, "noise_base", torch.float32, (n, 2)),
-        (sample, "sample", torch.int32, (n,)),
-        (bounce, "bounce", torch.int32, (n,)),
-        (flag, "flag", torch.int32, (n,)),
-        (origin, "origin", torch.float32, (n, 3)),
-        (direction, "direction", torch.float32, (n, 3)),
-        (thr, "thr", torch.float32, (n, 3)),
-        (srad, "srad", torch.float32, (n, 3)),
-        (lrad, "lrad", torch.float32, (n, 3)),
-        (shadow_o, "shadow_o", torch.float32, (n, 3)),
-        (shadow_d, "shadow_d", torch.float32, (n, 3)),
-        (contrib, "contrib", torch.float32, (n, 3)),
-    )
+    inputs = lane_inputs(n, u, v_tex, noise_base, sample, bounce, flag, origin, direction,
+                         thr, srad, lrad, shadow_o, shadow_d, contrib)
     for tensor, name, dtype, shape in inputs:
         _build.check(tensor, name, dtype, shape, dev)
     outputs = (
@@ -161,21 +201,16 @@ def trace_regen_reference(
     def regenerate(idx):
         """Start the next sample of lanes idx: fresh primary, unit
         throughput, bounce 1."""
-        noise = noise_of(noise_base[idx], frame_base, sample[idx], spp)
-        o, d = primary_ray(camera, u[idx], v_tex[idx], noise, inv_dims)
-        origin[idx], direction[idx] = o, d
+        origin[idx], direction[idx] = primaries(
+            camera, u, v_tex, noise_base, inv_dims, frame_base, spp, idx, sample[idx])
         thr[idx] = 1.0
         bounce[idx] = 1
 
     # 1. Pending NEE light sample: trace the shadow ray where the
     # contribution is non-zero; add contrib * visibility.
     live = sample < nf
-    has_nee = live & ((flag == 1) | (flag == 2))
-    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
-    shadow = torch.nonzero(has_nee & (contrib != 0.0).any(dim=1))[:, 0]
-    occluded[shadow] = intersect_any(scene, shadow_o[shadow], shadow_d[shadow], t_max)
-    visible = torch.where(occluded, 0.0, 1.0)[:, None]
-    srad = torch.where(has_nee[:, None], srad + contrib * visible, srad)
+    srad = add_nee(scene, live & ((flag == 1) | (flag == 2)), srad, shadow_o, shadow_d,
+                   contrib, t_max)
 
     # 2. Terminate after NEE: flush, finish the sample, regenerate.
     term = live & (flag == 2)

@@ -1,0 +1,174 @@
+"""Persistent path kernel with in-kernel shading (K4): CUDA kernel and its
+plain version.
+
+Counterpart of `rayfinder_tpu.ops.pallas_regen.pallas_trace_regen_shaded`.
+Each round, per lane: resolve the pending NEE sample, terminate flag==2
+paths, trace one closest segment (a miss adds the sky, flushes and
+regenerates), then shade the hit in place (render/shade.py). The rounds
+repeat while more than `live_floor` lanes of the lane's 128-lane tile have
+samples left, so a nonzero floor lets the caller compact the survivors and
+call again. Lane arrays keep the TPU kernel's public layout: (B,) and (B, 3).
+
+The kernel (csrc/regen_shaded.cu) runs one 128-thread block per tile and
+reads the triangle attributes and texels from global memory, so it has none
+of the TPU kernel's scene-size or VMEM limits. The plain version
+`trace_regen_shaded_reference` runs the same rounds in torch over the lanes
+of the tiles still running. A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..render.camera import Camera
+from ..render.rng import noise_of
+from ..render.scene import DeviceScene
+from ..render.shade import _nee_and_continuation
+from ..render.traverse import intersect_closest
+from ..sky.model import SkyState, sky_radiance_dir
+from . import _build
+from .regen import _params, add_nee, lane_inputs, primaries
+
+__all__ = ["trace_regen_shaded", "trace_regen_shaded_reference", "TILE"]
+
+# Lanes per tile: the live floor is counted per tile (the CUDA block).
+TILE = 128
+
+
+def trace_regen_shaded(
+    scene: DeviceScene, camera: Camera, sky: SkyState, u, v_tex, noise_base,
+    inv_dims: tuple[float, float], frame_base: int, spp: int, num_frames: int,
+    num_bounces: int, live_floor: int, t_max: float,
+    sample, bounce, flag, origin, direction, thr, srad, lrad,
+    shadow_o, shadow_d, contrib,
+):
+    """Run the path loop with in-kernel shading until each 128-lane tile
+    (lanes 128k .. 128k+127) has at most `live_floor` lanes with samples left
+    (0: until every sample is done).
+
+    Arguments as `trace_regen`, plus the depth limit num_bounces and the
+    per-tile floor. Returns the whole lane state (sample, bounce, flag,
+    origin, direction, thr, srad, lrad, shadow_o, shadow_d, contrib): lanes
+    still live carry their pending NEE sample (flag 1 or 2) to the next
+    call."""
+    if u.device.type == "cpu":
+        return trace_regen_shaded_reference(
+            scene, camera, sky, u, v_tex, noise_base, inv_dims, frame_base, spp,
+            num_frames, num_bounces, live_floor, t_max, sample, bounce, flag, origin,
+            direction, thr, srad, lrad, shadow_o, shadow_d, contrib,
+        )
+    dev = u.device
+    n = u.shape[0]
+    inputs = lane_inputs(n, u, v_tex, noise_base, sample, bounce, flag, origin, direction,
+                         thr, srad, lrad, shadow_o, shadow_d, contrib)
+    for tensor, name, dtype, shape in inputs:
+        _build.check(tensor, name, dtype, shape, dev)
+    outputs = (
+        *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)),
+        *(torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(8)),
+    )
+    if n:
+        params = _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
+                         num_bounces=num_bounces, live_floor=live_floor)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.rf_trace_regen_shaded(
+                *_build.scene_args(scene, dev), *_build.shade_args(scene, dev),
+                ctypes.addressof(params), n,
+                *(tensor.data_ptr() for tensor, *_ in inputs),
+                *(out.data_ptr() for out in outputs),
+                _build.stream_of(dev),
+            )
+        _build.raise_on_error(err, "rf_trace_regen_shaded")
+        trace_regen_shaded.launches += 1
+    return outputs
+
+
+# Kernel launch count (a run resets and reads it to show which kernels it
+# went through).
+trace_regen_shaded.launches = 0
+
+
+def trace_regen_shaded_reference(
+    scene: DeviceScene, camera: Camera, sky: SkyState, u, v_tex, noise_base,
+    inv_dims: tuple[float, float], frame_base: int, spp: int, num_frames: int,
+    num_bounces: int, live_floor: int, t_max: float,
+    sample, bounce, flag, origin, direction, thr, srad, lrad,
+    shadow_o, shadow_d, contrib,
+):
+    """Plain torch version of `trace_regen_shaded`, on any device. Same
+    arguments and results; the rounds of csrc/regen_shaded.cu over the
+    lanes of the tiles still running."""
+    nf = num_frames
+    n = u.shape[0]
+    dev = u.device
+    st = dict(sample=sample.clamp(max=nf), bounce=bounce, flag=flag, origin=origin,
+              direction=direction, thr=thr, srad=srad, lrad=lrad, shadow_o=shadow_o,
+              shadow_d=shadow_d, contrib=contrib)
+    st = {k: x.clone() for k, x in st.items()}
+    sun_dir = torch.as_tensor(sky.sun_direction, device=dev)
+    solar = torch.as_tensor(sky.solar_radiances, device=dev)
+    tile = torch.arange(n, device=dev) // TILE
+    num_tiles = -(-n // TILE)
+
+    def running():
+        """Lanes of the tiles with more than live_floor live lanes."""
+        live = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+        live.index_add_(0, tile, (st["sample"] < nf).to(torch.int64))
+        return torch.nonzero((live > live_floor)[tile])[:, 0]
+
+    idx = running()
+    while idx.numel():
+        s = {k: x[idx] for k, x in st.items()}
+        sample = s["sample"]
+        live = sample < nf
+
+        def regenerate(rows):
+            s["origin"][rows], s["direction"][rows] = primaries(
+                camera, u, v_tex, noise_base, inv_dims, frame_base, spp, idx[rows],
+                sample[rows])
+            s["thr"][rows] = 1.0
+            s["bounce"][rows] = 1
+
+        # 1. Pending NEE light sample of the previous segment.
+        srad = add_nee(scene, live & (s["flag"] > 0), s["srad"], s["shadow_o"],
+                       s["shadow_d"], s["contrib"], t_max)
+        # 2. Terminate after NEE: flush, finish the sample, regenerate.
+        term = live & (s["flag"] == 2)
+        lrad = torch.where(term[:, None], s["lrad"] + srad, s["lrad"])
+        srad = torch.where(term[:, None], 0.0, srad)
+        sample = torch.where(term, sample + 1, sample)
+        regenerate(torch.nonzero(term & (sample < nf))[:, 0])
+
+        # 3. One closest segment; a miss adds the sky, flushes, regenerates.
+        flying = torch.nonzero(sample < nf)[:, 0]
+        tri = torch.full_like(sample, -1)
+        hit, _, tri_f, _ = intersect_closest(scene, s["origin"][flying], s["direction"][flying],
+                                             t_max)
+        tri[flying] = tri_f
+        miss = flying[~hit]
+        srad[miss] = srad[miss] + s["thr"][miss] * sky_radiance_dir(sky, s["direction"][miss])
+        lrad[miss] = lrad[miss] + srad[miss]
+        srad[miss] = 0.0
+        sample[miss] = sample[miss] + 1
+        regenerate(miss[sample[miss] < nf])
+
+        # 4. Shade every lane of the running tiles (hit-masked).
+        noise = noise_of(noise_base[idx], frame_base, sample, spp)
+        (flag, origin, direction, thr, bounce, shadow_o, shadow_d, contrib
+         ) = _nee_and_continuation(
+            scene, noise, s["origin"], s["direction"], tri, s["thr"], s["bounce"],
+            sample < nf, sun_dir, solar, num_bounces,
+        )
+        new = dict(sample=sample, bounce=bounce, flag=flag, origin=origin,
+                   direction=direction, thr=thr, srad=srad, lrad=lrad, shadow_o=shadow_o,
+                   shadow_d=shadow_d, contrib=contrib)
+        for k, x in new.items():
+            st[k][idx] = x
+        idx = running()
+    return (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
+            st["thr"], st["srad"], st["lrad"], st["shadow_o"], st["shadow_d"],
+            st["contrib"])

@@ -1,6 +1,7 @@
 """Path tracer with path regeneration: the port of the JAX package's fused
 regeneration loop (`rayfinder_tpu.render.pathtracer`, accumulate_samples_regen
-with engine="pallas" -> _accumulate_regen_fused).
+with engine="pallas": _accumulate_regen_fused and its two other routes,
+_accumulate_regen_inkernel and _accumulate_regen_fused_segs).
 
 Per sample and pixel, with one 2D blue-noise value reused for every sampling
 decision that frame (exactly like the reference's WGSL megakernel `rayColor`,
@@ -11,40 +12,38 @@ src/pt/reference_path_tracer.wgsl:180-234):
   scatter; a miss adds the Hosek-Wilkie sky (without the sun, which arrives
   through NEE) and ends the sample.
 
-Each lane owns one pixel and traces its samples back to back. Each outer
-iteration makes one call of the persistent path kernel (ops/regen.py), which
-resolves the pending NEE, consumes every miss segment on the card and stops
-each lane at its next surface hit, and one shade step in torch
-(_nee_and_continuation) that prepares the NEE sample and the scatter ray. As
-lanes finish, the busy ones are compacted into narrower batches (phases).
+Each lane owns one pixel and traces its samples back to back. The split
+route (the default) makes, per outer iteration, one call of the persistent
+path kernel K3 (ops/regen.py), which resolves the pending NEE, consumes every
+miss segment on the card and stops each lane at its next surface hit, and
+one shade step in torch (render/shade.py) that prepares the NEE sample and
+the scatter ray. As lanes finish, the busy ones are compacted into narrower
+batches (phases). The in-kernel route (inkernel=True) shades inside the
+kernel K4 (ops/regen_shaded.py) after a split first phase; the segs route
+(segs=K) keeps K paths per lane in the kernel K5 (ops/regen_segs.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops.regen import trace_regen, trace_regen_reference
+from ..ops.regen_segs import SEGS, trace_regen_segs, trace_regen_segs_reference
+from ..ops.regen_shaded import TILE, trace_regen_shaded, trace_regen_shaded_reference
 from ..sky.model import SkyState
 from .camera import Camera, primary_ray
-from .intersect import T_MAX, cross, dot, offset_ray, ray_triangle
+from .intersect import T_MAX
 from .rng import blue_noise_tile, noise_of
-from .sampling import sample_cosine_hemisphere, sample_solar_disk_direction
 from .scene import DeviceScene
-from .texture_eval import eval_texture
+# The shade step lives in render/shade.py (the plain kernels use it too);
+# it is re-exported here, beside the loop that drives it.
+from .shade import PARK, _nee_and_continuation, _surface_interaction  # noqa: F401
 from .tiling import block_order, unswizzle
 from .tonemap import tonemap
-
-# wgsl:79-83
-TERRESTRIAL_SOLAR_RADIUS = np.float32(0.255 * np.pi / 180.0)
-SOLAR_COS_THETA_MAX = np.float32(np.cos(TERRESTRIAL_SOLAR_RADIUS))
-SOLAR_INV_PDF = np.float32(2.0 * np.pi * (1.0 - SOLAR_COS_THETA_MAX))
-FRAC_1_PI = np.float32(1.0 / np.pi)
-
-# Lanes whose path has ended are parked far outside the scene.
-PARK = 1e30
 
 # Phase compaction: when the busy-lane count falls below 1/DIV of the batch,
 # the busy lanes move into a batch that size, then down a ladder to FLOOR
@@ -53,11 +52,22 @@ PARK = 1e30
 _COMPACT_DIV = 10
 _COMPACT_FLOOR = 4096
 
-# engine name -> persistent path kernel. "kernel" is the CUDA kernel (the
-# counterpart of the JAX "pallas" engine; on CPU tensors its wrapper runs
-# the plain version); "plain" drives the same loop through the plain torch
-# version on any device.
-_ENGINES = {"kernel": trace_regen, "plain": trace_regen_reference}
+
+class _Kernels(NamedTuple):
+    split: Callable  # K3
+    shaded: Callable  # K4
+    segs: Callable  # K5
+
+
+# engine name -> the path kernels. "kernel" is the CUDA kernels (the
+# counterpart of the JAX "pallas" engine; on CPU tensors their wrappers run
+# the plain versions); "plain" drives the same loops through the plain torch
+# versions on any device.
+_ENGINES = {
+    "kernel": _Kernels(trace_regen, trace_regen_shaded, trace_regen_segs),
+    "plain": _Kernels(trace_regen_reference, trace_regen_shaded_reference,
+                      trace_regen_segs_reference),
+}
 
 
 def _phase_sizes(batch: int, floor: int) -> list[int]:
@@ -85,83 +95,90 @@ class SamplingParams(NamedTuple):
     num_bounces: int = 4
 
 
-def _surface_interaction(scene: DeviceScene, origin, direction, tri_idx):
-    """The reference's intersection data for known hit triangles: offset hit
-    point (geometric normal), interpolated shading normal, UV and texture
-    index (wgsl:383-401, 477-521). One (B, 25) row gather per lane."""
-    attrs = scene.tri_attrs[tri_idx.long()]
-    v0, v1, v2 = attrs[:, 0:3], attrs[:, 3:6], attrs[:, 6:9]
-    _, _, u, v = ray_triangle(origin, direction, v0, v1, v2, float("inf"))
+@dataclasses.dataclass
+class _Dispatch:
+    """What every kernel call and shade step of one dispatch shares."""
 
-    e1 = v1 - v0
-    e2 = v2 - v0
-    b1 = u[:, None]
-    b2 = v[:, None]
-    p = v0 + b1 * e1 + b2 * e2
-    geo_n = cross(e1, e2)
-    geo_n = geo_n / torch.sqrt(dot(geo_n, geo_n))[:, None]
-    p_offset = offset_ray(p, geo_n)
+    scene: DeviceScene
+    sky: SkyState
+    camera: Camera
+    kernels: _Kernels
+    inv_dims: tuple[float, float]
+    frame_base: int
+    spp: int
+    nf: int  # samples per pixel in this dispatch
+    num_bounces: int
+    sun_dir: torch.Tensor
+    solar: torch.Tensor
 
-    b0 = 1.0 - b1 - b2
-    # Interpolated shading normal; NOT renormalized, matching wgsl:396.
-    n = b0 * attrs[:, 9:12] + b1 * attrs[:, 12:15] + b2 * attrs[:, 15:18]
-    uv = b0 * attrs[:, 18:20] + b1 * attrs[:, 20:22] + b2 * attrs[:, 22:24]
-    tex = attrs[:, 24].contiguous().view(torch.int32)
-    return p_offset, n, uv, tex
+    def pixel_args(self, lanes):
+        return (self.scene, self.camera, self.sky, lanes["u"], lanes["v_tex"],
+                lanes["noise_base"], self.inv_dims, self.frame_base, self.spp, self.nf)
+
+    def primary(self, lanes, sample):
+        noise = noise_of(lanes["noise_base"], self.frame_base, sample, self.spp)
+        return primary_ray(self.camera, lanes["u"], lanes["v_tex"], noise, self.inv_dims)
+
+    def shade(self, noise_base, sample, origin, direction, tri, thr, bounce):
+        noise = noise_of(noise_base, self.frame_base, sample, self.spp)
+        return _nee_and_continuation(
+            self.scene, noise, origin, direction, tri, thr, bounce, sample < self.nf,
+            self.sun_dir, self.solar, self.num_bounces,
+        )
+
+    def split_step(self, st, lanes, lrad):
+        """One K3 call + one shade step."""
+        (sample, bounce, origin, direction, thr, srad, lrad, _t, tri) = self.kernels.split(
+            *self.pixel_args(lanes), T_MAX,
+            st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
+            st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
+        )
+        (flag, origin, direction, thr, bounce, shadow_o, shadow_d, contrib
+         ) = self.shade(lanes["noise_base"], sample, origin, direction, tri, thr, bounce)
+        st.update(sample=sample, bounce=bounce, flag=flag, origin=origin,
+                  direction=direction, thr=thr, srad=srad, shadow_o=shadow_o,
+                  shadow_d=shadow_d, contrib=contrib)
+        return lrad
+
+    def shaded_call(self, st, lanes, lrad, live_floor):
+        """One K4 call down to `live_floor` live lanes per 128-lane tile."""
+        out = self.kernels.shaded(
+            *self.pixel_args(lanes), self.num_bounces, live_floor, T_MAX,
+            st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
+            st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
+        )
+        (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"], st["thr"],
+         st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"]) = out
+        return lrad
+
+    def segs_step(self, st, lanes, lrad):
+        """One K5 call + the shade of its K hit segments, in ONE shade call
+        over the (K * B) slot rows, lane-major: the per-row arithmetic is
+        that of K calls, and the launches per iteration stay those of the
+        split route. Returns lrad and the slots' fresh flags."""
+        (salloc, lrad, ocnt, oray, othr, _t) = self.kernels.segs(
+            *self.pixel_args(lanes), T_MAX,
+            st["salloc"], lrad, st["cnt"], st["ray"], st["thr"], st["nee"],
+        )
+        n, segs = ocnt.shape[0], ocnt.shape[1] // 3
+        cnt, ray, thr = ocnt.view(-1, 3), oray.view(-1, 6), othr.view(-1, 6)
+        (flag, origin, direction, thr3, bounce, shadow_o, shadow_d, contrib
+         ) = self.shade(lanes["noise_base"].repeat_interleave(segs, 0), cnt[:, 0],
+                        ray[:, 0:3], ray[:, 3:6], cnt[:, 2], thr[:, 0:3], cnt[:, 1])
+        st.update(
+            salloc=salloc,
+            cnt=torch.stack([cnt[:, 0], bounce, flag], 1).view(n, 3 * segs),
+            ray=torch.cat([origin, direction], 1).view(n, 6 * segs),
+            thr=torch.cat([thr3, thr[:, 3:6]], 1).view(n, 6 * segs),
+            nee=torch.cat([shadow_o, shadow_d, contrib], 1).view(n, 9 * segs),
+        )
+        return lrad, flag
 
 
-def _nee_and_continuation(
-    scene, noise, origin, direction, tri, thr, bounce, live,
-    sun_dir, solar_radiance, num_bounces,
-):
-    """Shade step of the fused loop: for lanes stopped at a surface hit,
-    prepare the NEE light sample (shadow ray + unoccluded contribution) and
-    the scatter continuation; the next kernel call applies them.
-
-    Returns (flag, origin, direction, thr, bounce, shadow_o, shadow_d,
-    contrib); flag 1 = NEE pending + scatter continuation, 2 = NEE pending
-    + terminate, 0 = no hit."""
-    hit = live & (tri >= 0)
-    p, n, uv, tex = _surface_interaction(scene, origin, direction, tri.clamp(min=0))
-    albedo = eval_texture(scene, tex, uv)
-    light_dir = sample_solar_disk_direction(noise, SOLAR_COS_THETA_MAX, sun_dir)
-    brdf = albedo * float(FRAC_1_PI)
-    # No clamp on the cosine -- parity with wgsl:201.
-    cos_term = dot(n, light_dir)[:, None]
-    p_ok = torch.isfinite(p).all(dim=1)
-    shadow_o = torch.where((hit & p_ok)[:, None], p, PARK)
-    contrib = thr * solar_radiance * brdf * cos_term * float(SOLAR_INV_PDF)
-    contrib = torch.where(hit[:, None], contrib, 0.0)
-
-    wi = sample_cosine_hemisphere(noise, n)
-    ray_ok = torch.isfinite(wi).all(dim=1) & p_ok
-    scatter = hit & (bounce < num_bounces) & ray_ok
-    flag = torch.where(hit, torch.where(scatter, 1, 2), 0).to(torch.int32)
-    s3 = scatter[:, None]
-    origin = torch.where(s3, p, origin)
-    direction = torch.where(s3, wi, direction)
-    thr = torch.where(s3, thr * albedo, thr)
-    bounce = torch.where(scatter, bounce + 1, bounce)
-    return flag, origin, direction, thr, bounce, shadow_o, light_dir, contrib
-
-
-def _accumulate_regen_fused(
-    scene, sky, camera, frame_base, accum, *,
-    u, v_tex, noise_base, inv_dims, num_bounces, spp, num_frames,
-    compact_floor, count_rays, trace,
-):
-    """The fused regeneration loop over lanes with per-lane pixel data
-    (u, v_tex, noise_base). Returns the new accumulation buffer and, with
-    count_rays, the exact [closest, shadow] ray counts."""
-    batch = u.shape[0]
-    dev = u.device
-    nf = num_frames
-    sun_dir = torch.as_tensor(sky.sun_direction, device=dev)
-    solar = torch.as_tensor(sky.solar_radiances, device=dev)
-
+def _initial_state(d: _Dispatch, lanes, batch, dev):
     sample = torch.zeros(batch, dtype=torch.int32, device=dev)
-    o0, d0 = primary_ray(camera, u, v_tex, noise_of(noise_base, frame_base, sample, spp), inv_dims)
-    st = dict(
+    o0, d0 = d.primary(lanes, sample)
+    return dict(
         sample=sample,
         bounce=torch.ones(batch, dtype=torch.int32, device=dev),
         flag=torch.zeros(batch, dtype=torch.int32, device=dev),  # no NEE pending
@@ -173,68 +190,24 @@ def _accumulate_regen_fused(
         shadow_d=torch.tensor([1.0, 0.0, 0.0], device=dev).expand(batch, 3).contiguous(),
         contrib=torch.zeros(batch, 3, device=dev),
     )
-    # Phase 1: lane == pixel, so lanes accumulate straight into accum.
-    lrad = accum.clone()
-    # [H, D]: surface hits, and samples ended at a hit (depth limit or
-    # degenerate scatter) rather than by a miss.
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
 
-    def step(lrad):
-        """One kernel call + one shade step. Every surface hit passes
-        through the shade exactly once, so the fresh flags count hits (H)
-        and flag==2 the samples that end without a miss (D)."""
-        (sample, bounce, origin, direction, thr, srad, lrad, _t, tri) = trace(
-            scene, camera, sky, lanes["u"], lanes["v_tex"], lanes["noise_base"],
-            inv_dims, frame_base, spp, nf, T_MAX,
-            st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
-            st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
-        )
-        live = sample < nf
-        noise = noise_of(lanes["noise_base"], frame_base, sample, spp)
-        (flag, origin, direction, thr, bounce, shadow_o, shadow_d, contrib
-         ) = _nee_and_continuation(
-            scene, noise, origin, direction, tri, thr, bounce, live,
-            sun_dir, solar, num_bounces,
-        )
-        st.update(sample=sample, bounce=bounce, flag=flag, origin=origin,
-                  direction=direction, thr=thr, srad=srad, shadow_o=shadow_o,
-                  shadow_d=shadow_d, contrib=contrib)
-        if count_rays:
-            counts.add_(torch.stack([(flag > 0).sum(), (flag == 2).sum()]))
-        return lrad
 
-    def busy():
-        return st["sample"] < nf
-
-    floor = _COMPACT_FLOOR if compact_floor is None else compact_floor
-    lrad_full, pix = None, None
-    for size in _phase_sizes(batch, floor)[1:]:
-        while int(busy().sum()) > size:
-            lrad = step(lrad)
-        # Flush lane radiance to the pixels, then compact the busy lanes
-        # (pending NEE state rides along and resolves in the next phase).
-        lrad_full = lrad if pix is None else _flush(lrad_full, pix, lrad, batch)
-        idx = torch.nonzero(busy())[:, 0]
-        valid = torch.arange(size, device=dev) < idx.numel()
-        idx = torch.cat([idx, idx.new_zeros(size - idx.numel())])
-        # One gather per tensor, integers as integers.
-        for d in (st, lanes):
-            for k in d:
-                d[k] = d[k][idx]
-        st["sample"] = torch.where(valid, st["sample"], nf)  # padding: dead
-        pix = idx if pix is None else pix[idx]
-        pix = torch.where(valid, pix, batch)  # out of range: dropped
-        lrad = torch.zeros(size, 3, device=dev)
-
-    while bool(busy().any()):
-        lrad = step(lrad)
-    out = lrad if pix is None else _flush(lrad_full, pix, lrad, batch)
-    if count_rays:
-        hits, depth = counts
-        total = batch * num_frames
-        return out, torch.stack([hits + (total - depth), hits])
-    return out
+def _compact(busy, size, pix, batch, *tables):
+    """Move the busy lanes, in order, into the first rows of `size` rows of
+    every tensor of `tables` (dicts, updated in place); padding rows copy
+    lane 0. Returns (valid, pix): the real rows, and each row's pixel
+    (`batch`, out of range, on padding rows)."""
+    idx = torch.nonzero(busy)[:, 0]
+    if idx.numel() > size:
+        raise RuntimeError(f"{idx.numel()} busy lanes do not fit a phase of {size}")
+    valid = torch.arange(size, device=busy.device) < idx.numel()
+    idx = torch.cat([idx, idx.new_zeros(size - idx.numel())])
+    # One gather per tensor, integers as integers.
+    for table in tables:
+        for k in table:
+            table[k] = table[k][idx]
+    pix = idx if pix is None else pix[idx]
+    return valid, torch.where(valid, pix, batch)
 
 
 def _flush(lrad_full, pix, lrad, batch):
@@ -242,6 +215,166 @@ def _flush(lrad_full, pix, lrad, batch):
     padding rows (pix == batch)."""
     keep = pix < batch
     return lrad_full.index_add(0, pix[keep], lrad[keep])
+
+
+def _with_counts(out, counts, total):
+    """[H, D] -> (out, [closest, shadow]): every sample ends exactly once,
+    by a miss (one more closest segment) or at a hit (D), so misses are
+    total - D; closest = H + misses, shadow = H."""
+    hits, depth = counts
+    return out, torch.stack([hits + (total - depth), hits])
+
+
+def _phased_loop(accum, lanes, floor, st, step, busy, pad):
+    """Run `step` (one iteration: lrad -> lrad) down the phase ladder. Phase
+    1 has lane == pixel, so lanes accumulate straight into accum. Each phase
+    steps while more lanes are busy than the next phase holds, then flushes
+    the lane radiance to the pixels and compacts the busy lanes of `st` and
+    `lanes` (pending NEE state rides along and resolves in the next phase;
+    `pad(valid)` makes the padding rows dead). The last phase steps until
+    no lane is busy. Returns the new accumulation buffer."""
+    batch = accum.shape[0]
+    lrad = accum.clone()
+    lrad_full, pix = None, None
+    for size in _phase_sizes(batch, floor)[1:]:
+        while int(busy().sum()) > size:
+            lrad = step(lrad)
+        lrad_full = lrad if pix is None else _flush(lrad_full, pix, lrad, batch)
+        valid, pix = _compact(busy(), size, pix, batch, st, lanes)
+        pad(valid)
+        lrad = torch.zeros(size, 3, device=accum.device)
+    while bool(busy().any()):
+        lrad = step(lrad)
+    return lrad if pix is None else _flush(lrad_full, pix, lrad, batch)
+
+
+def _add_counts(counts, flag):
+    """Every surface hit passes through the shade exactly once, so the fresh
+    flags count hits H (flag > 0) and the samples that end at a hit rather
+    than by a miss, D (flag == 2: depth limit or degenerate scatter)."""
+    counts.add_(torch.stack([(flag > 0).sum(), (flag == 2).sum()]))
+
+
+def _accumulate_regen_fused(d: _Dispatch, accum, lanes, floor, count_rays):
+    """The split route: one K3 call and one shade step per iteration.
+    Returns the new accumulation buffer and, with count_rays, the exact
+    [closest, shadow] ray counts."""
+    batch = accum.shape[0]
+    st = _initial_state(d, lanes, batch, accum.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=accum.device)
+
+    def step(lrad):
+        lrad = d.split_step(st, lanes, lrad)
+        if count_rays:
+            _add_counts(counts, st["flag"])
+        return lrad
+
+    def pad(valid):
+        st["sample"] = torch.where(valid, st["sample"], d.nf)
+
+    out = _phased_loop(accum, lanes, floor, st, step, lambda: st["sample"] < d.nf, pad)
+    return _with_counts(out, counts, batch * d.nf) if count_rays else out
+
+
+def _accumulate_regen_inkernel(d: _Dispatch, accum, lanes, floor):
+    """The in-kernel route (JAX _accumulate_regen_inkernel): phase 0 is the
+    split route (K3 + torch shade) while more lanes than the first compacted
+    phase are busy; then the busy lanes compact, and one K4 call per further
+    phase runs each 128-lane tile down to a per-tile live floor, followed by
+    a flush and a compaction; the last K4 call runs to floor 0. A batch
+    with no compacted phase takes a single K4 call at floor 0.
+
+    The per-tile floor is nxt // (tiles of the current phase), so the
+    survivors always fit the next phase; the JAX loop divides by cur // 128,
+    the same wherever the phase is a multiple of 128 lanes or narrower than
+    one tile."""
+    batch = accum.shape[0]
+    st = _initial_state(d, lanes, batch, accum.device)
+    sizes = _phase_sizes(batch, floor)
+    if len(sizes) < 2:
+        return d.shaded_call(st, lanes, accum.clone(), 0)
+    lrad_full, pix, lrad = _split_phase0(d, st, lanes, accum, sizes[1])
+    for cur, nxt in zip(sizes[1:], sizes[2:]):
+        lrad = d.shaded_call(st, lanes, lrad, _tile_floor(cur, nxt))
+        lrad_full = _flush(lrad_full, pix, lrad, batch)
+        pix, lrad = _compact_state(d, st, lanes, nxt, pix, batch)
+    lrad = d.shaded_call(st, lanes, lrad, 0)
+    return _flush(lrad_full, pix, lrad, batch)
+
+
+def _tile_floor(cur: int, nxt: int) -> int:
+    """K4's per-tile live floor for a phase of `cur` lanes whose survivors
+    move into `nxt` rows."""
+    return nxt // -(-cur // TILE)
+
+
+def _compact_state(d: _Dispatch, st, lanes, size, pix, batch):
+    """Compact the busy lanes of the split or in-kernel state into `size`
+    rows. Returns (pix, a zero lrad for the new phase)."""
+    valid, pix = _compact(st["sample"] < d.nf, size, pix, batch, st, lanes)
+    st["sample"] = torch.where(valid, st["sample"], d.nf)  # padding: dead
+    return pix, torch.zeros(size, 3, device=valid.device)
+
+
+def _split_phase0(d: _Dispatch, st, lanes, accum, size):
+    """Phase 0 of the in-kernel route: split steps (lane == pixel, straight
+    into accum) until at most `size` lanes are busy; then the busy lanes
+    compact into `size` rows. Returns (lrad_full, pix, lrad)."""
+    lrad = accum.clone()
+    while int((st["sample"] < d.nf).sum()) > size:
+        lrad = d.split_step(st, lanes, lrad)
+    pix, lrad_new = _compact_state(d, st, lanes, size, None, accum.shape[0])
+    return lrad, pix, lrad_new
+
+
+def _initial_slots(d: _Dispatch, lanes, batch, segs, dev):
+    """Slot state of the segs route: slot j of every lane starts at sample
+    j, the allocator at `segs`; columns as trace_regen_segs takes them."""
+    rows = batch * segs
+    # Lane-major rows: row b * segs + j is slot j of lane b.
+    sample = torch.arange(segs, dtype=torch.int32, device=dev).repeat(batch)
+    o0, d0 = d.primary({k: x.repeat_interleave(segs, 0) for k, x in lanes.items()}, sample)
+    st = dict(
+        salloc=torch.full((batch,), segs, dtype=torch.int32, device=dev),
+        cnt=torch.stack([sample, torch.ones_like(sample), torch.zeros_like(sample)], 1),
+        ray=torch.cat([o0, d0], 1),
+        thr=torch.cat([torch.ones(rows, 3, device=dev), torch.zeros(rows, 3, device=dev)], 1),
+        nee=torch.cat([torch.full((rows, 3), PARK, device=dev),
+                       torch.tensor([1.0, 0.0, 0.0], device=dev).expand(rows, 3),
+                       torch.zeros(rows, 3, device=dev)], 1),
+    )
+    for k, c in (("cnt", 3), ("ray", 6), ("thr", 6), ("nee", 9)):
+        st[k] = st[k].reshape(batch, c * segs)
+    return st
+
+
+def _accumulate_regen_fused_segs(d: _Dispatch, accum, lanes, floor, count_rays, segs):
+    """The segs route (JAX _accumulate_regen_fused_segs): each lane keeps
+    `segs` paths of its pixel in slots, starting with samples 0..segs-1, and
+    takes the pixel's later samples from its allocator. Per iteration, one
+    K5 call returns a hit segment per slot and one shade step prepares the
+    slots' NEE samples and scatter rays (_Dispatch.segs_step). A lane is
+    busy while any slot has samples left (the minimum of the slots'
+    samples); compaction follows the same phase ladder. Counts come from the
+    slots' fresh flags, exactly as in the split route."""
+    batch = accum.shape[0]
+    st = _initial_slots(d, lanes, batch, segs, accum.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=accum.device)
+
+    def step(lrad):
+        lrad, flag = d.segs_step(st, lanes, lrad)
+        if count_rays:
+            _add_counts(counts, flag)
+        return lrad
+
+    def pad(valid):
+        # Padding rows: the allocator and every slot exhausted.
+        st["salloc"] = torch.where(valid, st["salloc"], d.nf)
+        st["cnt"][:, 0::3] = torch.where(valid[:, None], st["cnt"][:, 0::3], d.nf)
+
+    out = _phased_loop(accum, lanes, floor, st, step,
+                       lambda: st["cnt"][:, 0::3].amin(dim=1) < d.nf, pad)
+    return _with_counts(out, counts, batch * d.nf) if count_rays else out
 
 
 def accumulate_samples_regen(
@@ -260,6 +393,8 @@ def accumulate_samples_regen(
     engine: str = "kernel",
     compact_floor: int | None = None,
     count_rays: bool = False,
+    inkernel: bool = False,
+    segs: int = 1,
 ):
     """Add samples frame_base .. frame_base + num_frames - 1 of every pixel
     into accum ((H*W, 3) f32, block-major pixel order, render/tiling.py)
@@ -273,12 +408,31 @@ def accumulate_samples_regen(
     per surface hit, as the reference's megakernel traces them
     (reference_path_tracer.wgsl:180-234).
 
-    engine="kernel" drives the loop through the CUDA path kernel;
-    engine="plain" through its plain torch version (any device)."""
+    Routes, all with the same per-sample arithmetic:
+    - the split route (default): the path kernel K3 + a torch shade step
+      per iteration;
+    - inkernel=True: after a split first phase, the kernel K4 shades in
+      place and runs each 128-lane tile down to a live floor (the JAX
+      RAYFINDER_INKERNEL=1 hybrid). It cannot count rays (whole paths end
+      inside the kernel): with count_rays it raises;
+    - segs=K (2 to 4): the kernel K5 keeps K paths per lane and returns K
+      hit segments per call (the JAX RAYFINDER_SEGS=K route).
+    The JAX package gates the last two to small scenes (VMEM tables, flat
+    sweeps); the CUDA kernels read triangle attributes and texels from
+    global memory and walk the BVH per thread, so they take any scene.
+
+    engine="kernel" drives the loop through the CUDA path kernels;
+    engine="plain" through their plain torch versions (any device)."""
     if engine not in _ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}: the port has {sorted(_ENGINES)}"
         )
+    if segs != 1 and segs not in SEGS:
+        raise ValueError(f"segs={segs}: 1 (off) or one of {SEGS}")
+    if inkernel and count_rays:
+        raise ValueError("inkernel=True cannot count rays: paths end inside the kernel")
+    if inkernel and segs != 1:
+        raise ValueError("inkernel=True and segs > 1 are two different routes")
     dev = accum.device
     ys_np, xs_np, _ = block_order(width, height)
     ys = torch.from_numpy(ys_np).to(dev)
@@ -291,13 +445,19 @@ def accumulate_samples_regen(
     noise_base = blue_noise_tile[(ys % th).long(), (xs % tw).long()]
     inv_dims = (float(np.float32(1.0) / np.float32(width)),
                 float(np.float32(1.0) / np.float32(height)))
-    return _accumulate_regen_fused(
-        scene, sky, camera, frame_base, accum,
-        u=u, v_tex=v_tex, noise_base=noise_base, inv_dims=inv_dims,
-        num_bounces=num_bounces, spp=spp, num_frames=num_frames,
-        compact_floor=compact_floor, count_rays=count_rays,
-        trace=_ENGINES[engine],
+    d = _Dispatch(
+        scene=scene, sky=sky, camera=camera, kernels=_ENGINES[engine], inv_dims=inv_dims,
+        frame_base=frame_base, spp=spp, nf=num_frames, num_bounces=num_bounces,
+        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
+        solar=torch.as_tensor(sky.solar_radiances, device=dev),
     )
+    lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
+    floor = _COMPACT_FLOOR if compact_floor is None else compact_floor
+    if inkernel:
+        return _accumulate_regen_inkernel(d, accum, lanes, floor)
+    if segs > 1:
+        return _accumulate_regen_fused_segs(d, accum, lanes, floor, count_rays, segs)
+    return _accumulate_regen_fused(d, accum, lanes, floor, count_rays)
 
 
 def render_image(
@@ -311,10 +471,13 @@ def render_image(
     exposure: float = 1.0,
     engine: str = "kernel",
     samples_per_dispatch: int = 32,
+    inkernel: bool = False,
+    segs: int = 1,
 ) -> np.ndarray:
     """Render a full image on the scene's device: spp progressive samples,
     running-mean estimator, ACES tonemap + gamma (wgsl:59-63). Returns
-    (H, W, 3) float32 numpy in [0, 1]."""
+    (H, W, 3) float32 numpy in [0, 1]. inkernel and segs choose the route
+    (accumulate_samples_regen)."""
     dev = scene.device
     tile = torch.from_numpy(blue_noise_tile()).to(dev)
     accum = torch.zeros(height * width, 3, device=dev)
@@ -325,7 +488,7 @@ def render_image(
         accum = accumulate_samples_regen(
             scene, sky, camera, tile, frame, accum,
             width=width, height=height, num_bounces=sampling.num_bounces,
-            spp=spp, num_frames=n, engine=engine,
+            spp=spp, num_frames=n, engine=engine, inkernel=inkernel, segs=segs,
         )
         frame += n
     img = tonemap(unswizzle(accum, width, height) / float(spp), exposure)

@@ -1,11 +1,13 @@
-"""Bake the golden image that the PyTorch port's render is held to.
+"""Bake the golden images that the PyTorch port's render is held to.
 
-Renders the untextured courtyard (courtyard_scene(8)) at 128x96, 8 spp,
-4 bounces with the JAX package on CPU (accumulate_samples_regen,
-engine="reference": the per-ray stack walk), tonemaps it with exposure 0.25
-and writes tests/goldens/courtyard_untextured_128x96_8spp.npz. The same
-configuration is rendered through the port by chip_smoke.py (phase 3) and
-by tests/test_torch_golden.py.
+Renders the untextured and the textured courtyard (courtyard_scene(8)) at
+128x96, 8 spp, 4 bounces with the JAX package on CPU
+(accumulate_samples_regen, engine="reference": the per-ray stack walk),
+tonemaps them with exposure 0.25 and writes
+tests/goldens/courtyard_untextured_128x96_8spp.npz and
+tests/goldens/courtyard_textured_128x96_8spp.npz. The same configurations
+are rendered through the port by chip_smoke.py (phases 3 and 3b) and by
+tests/test_torch_golden.py.
 
     JAX_PLATFORMS=cpu python tests/goldens/bake_torch_smoke.py
 """
@@ -18,7 +20,13 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-OUT = pathlib.Path(__file__).resolve().parent / "courtyard_untextured_128x96_8spp.npz"
+GOLDENS = pathlib.Path(__file__).resolve().parent
+
+
+def golden_path(textured: bool) -> pathlib.Path:
+    kind = "textured" if textured else "untextured"
+    return GOLDENS / f"courtyard_{kind}_128x96_8spp.npz"
+
 
 # The configuration, shared with chip_smoke.py and the CPU test.
 WIDTH, HEIGHT, SPP, BOUNCES, SUBDIV, EXPOSURE = 128, 96, 8, 4, 8, 0.25
@@ -26,7 +34,7 @@ CAMERA = ([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0)
 SKY = (2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
 
 
-def main() -> None:
+def bake(textured: bool) -> None:
     import jax.numpy as jnp
 
     from rayfinder_tpu.render.camera import create_camera
@@ -38,7 +46,7 @@ def main() -> None:
     from rayfinder_tpu.scene.procedural import courtyard_scene
     from rayfinder_tpu.sky.model import sky_state_from_ui
 
-    flat, textures = courtyard_scene(SUBDIV, textured=False)
+    flat, textures = courtyard_scene(SUBDIV, textured=textured)
     scene = build_device_scene(flat, textures=textures)
     camera = create_camera(*CAMERA, WIDTH / HEIGHT)
     sky = sky_state_from_ui(*SKY)
@@ -50,9 +58,11 @@ def main() -> None:
     )
     img = tonemap(unswizzle(accum, WIDTH, HEIGHT) / jnp.float32(SPP), EXPOSURE)
     img = np.asarray(img).reshape(HEIGHT, WIDTH, 3).astype(np.float32)
-    np.savez_compressed(OUT, image=img, rays=np.asarray(rays).astype(np.int64))
-    print(f"wrote {OUT} rays={np.asarray(rays).tolist()}")
+    out = golden_path(textured)
+    np.savez_compressed(out, image=img, rays=np.asarray(rays).astype(np.int64))
+    print(f"wrote {out} rays={np.asarray(rays).tolist()}")
 
 
 if __name__ == "__main__":
-    main()
+    for textured in (False, True):
+        bake(textured)

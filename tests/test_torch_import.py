@@ -25,7 +25,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = list(_modules()) + ["chip_smoke"]
-    assert "rayfinder_tpu_torch.ops.regen" in mods
+    for m in ("ops.regen", "ops.regen_shaded", "ops.regen_segs", "render.shade"):
+        assert f"rayfinder_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -53,6 +54,20 @@ def test_package_sources_hold_no_stand_ins():
             assert banned not in text, f"{path.name}: {banned}"
         if path.suffix == ".py" and path.parent != ROOT:
             assert "try:" not in text, f"{path.name}: try around a launch"
+
+
+def test_kernel_sources_use_no_fast_math():
+    """IEEE rounding in every kernel: no fast-math intrinsics, no
+    use_fast_math (the kernels are held bit for bit to their plain
+    versions)."""
+    sources = sorted((PKG / "csrc").glob("*.cu*"))
+    assert {p.name for p in sources} >= {"regen_shaded.cu", "regen_segs.cu", "path.cuh",
+                                         "shade.cuh"}
+    for path in sources:
+        text = path.read_text()
+        for banned in ("__powf", "__sinf", "__cosf", "__expf", "__logf", "__fdividef",
+                       "use_fast_math"):
+            assert banned not in text, f"{path.name}: {banned}"
 
 
 def test_build_flags_keep_ieee_rounding():

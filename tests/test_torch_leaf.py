@@ -275,9 +275,10 @@ def test_tonemap_close():
 
 
 def test_kernel_float_constants_are_float32_values():
-    """regen.cu spells the float32 constants of the noise and the lens as
-    decimal literals; each must be the float32 the torch side uses."""
-    src = (pathlib.Path(rng.__file__).resolve().parents[1] / "csrc" / "regen.cu").read_text()
+    """path.cuh (the path kernels' shared per-lane code) spells the float32
+    constants of the noise and the lens as decimal literals; each must be
+    the float32 the torch side uses."""
+    src = (pathlib.Path(rng.__file__).resolve().parents[1] / "csrc" / "path.cuh").read_text()
     lits = dict(re.findall(r"constexpr float (k\w+) = ([0-9.]+)f;", src))
     assert np.float32(lits["kA1"]) == rng.A1
     assert np.float32(lits["kA2"]) == rng.A2
