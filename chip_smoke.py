@@ -3,23 +3,24 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA device and the
-CUDA toolkit (nvcc). It builds the port's CUDA kernels from csrc/, then:
+CUDA toolkit (nvcc). It imports only the port. It builds the port's CUDA
+kernels from csrc/, then:
 
 1. prints the card's name and power limit and the build time;
 2. runs the closest-hit (K1) and any-hit (K2) kernels on the 256 rays of
    each *_courtyard8.npz golden and on 262,144 camera and random rays over
    the 254K-triangle courtyard, and holds them to their plain torch
    versions on the same card exactly (t at atol 0, tri, nodes visited,
-   occlusion);
+   occlusion); the counted walk (K6) on the same rays gives K1's work;
 3. renders the untextured courtyard_scene(8) at 128x96, 8 spp, 4 bounces
    through the kernels, through the plain versions, and through the
    in-kernel (K4) and segs=2 (K5) routes: the tonemapped images must agree
    at RMSE < 1e-3, each must lie within RMSE 5e-3 of
    tests/goldens/courtyard_untextured_128x96_8spp.npz (baked by the JAX
    package), the [closest, shadow] ray counts within 0.1%;
-3b. the same for the textured courtyard_scene(8), built without Pillow
-   (textured_courtyard), through the split, in-kernel and segs=2 routes
-   and the plain in-kernel route, against
+3b. the same for the textured courtyard_scene(8) (its textures built
+   without Pillow), through the split, in-kernel and segs=2 routes and the
+   plain in-kernel route, against
    tests/goldens/courtyard_textured_128x96_8spp.npz;
 4. runs the slice -- courtyard_scene(26) untextured (254,176 triangles),
    512x512, 4 bounces, exact ray counts -- one warm-up dispatch of 16
@@ -30,11 +31,24 @@ CUDA toolkit (nvcc). It builds the port's CUDA kernels from csrc/, then:
    route's and the segs ray counts to its counts, and times three more
    dispatches of each route in turns;
 6. holds each path kernel (K3, K4, K5) to its plain version at the slice's
-   shapes.
+   shapes, and counts the walks' work of each call;
+7. the traversal efficiency of the bench (prof/diag_iters.py): the
+   courtyard(26) through the production asset path (GLB -> .pt -> scene),
+   its 512x512 primary rays and two dir-key-sorted bounce populations;
+   the counted walk (K6) on every ray, held to its plain version (t, tri,
+   all counts exact) and to K1 (t, tri, nodes); the slab-entry reductions
+   (K7) held to their plain version on 4,096 rays of each population over
+   all leaves (need, group minima and selection exact); need <= triangle
+   tests on every ray; the mt_waste figures;
+8. the probes: K7 at the TPU probe's shapes (prof/probe_prebuilt.py), and
+   the sky-round probe (K8, prof/prof_skyround.py) in each mode and for
+   each camera, held to its plain version at 4 rounds on all 65,536 lanes,
+   then timed at 64 rounds.
 
-Any failed phase raises, so the script exits non-zero and prints no "ok"
-line. The line before the last is a JSON object of per-kernel numbers; the
-last is {"ok": true, "device": {...}}.
+Any failed check raises, so the script exits non-zero and prints no "ok"
+line. The line before the last is a JSON object of per-kernel numbers
+(time, plain time, launches on the run that drives each kernel, bound);
+the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,62 +68,14 @@ CAMERA = ([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0)
 SKY = (2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
 
 
-# The textured courtyard's 14 textures (rayfinder_tpu/scene/procedural.py
-# courtyard_textures): pattern function and arguments, in index order.
-_COURTYARD_TEXTURES = (
-    ("_checker_rgb", (512, (0.72, 0.66, 0.58), (0.5, 0.46, 0.42), 16)),
-    ("_brick_rgb", (512, (0.78, 0.74, 0.7), (0.6, 0.57, 0.54))),
-    ("_brick_rgb", (256, (0.84, 0.82, 0.74), (0.7, 0.68, 0.6))),
-    ("_brick_rgb", (320, (0.75, 0.68, 0.62), (0.55, 0.5, 0.46))),
-    ("_brick_rgb", (192, (0.8, 0.72, 0.66), (0.62, 0.55, 0.5))),
-    ("_marble_rgb", (128, (0.85, 0.83, 0.78), (0.66, 0.64, 0.6), 0)),
-    ("_marble_rgb", (96, (0.82, 0.8, 0.78), (0.6, 0.58, 0.56), 1)),
-    ("_marble_rgb", (160, (0.88, 0.84, 0.76), (0.68, 0.64, 0.56), 2)),
-    ("_marble_rgb", (64, (0.8, 0.78, 0.72), (0.58, 0.56, 0.5), 3)),
-    ("_wood_rgb", (128, (0.6, 0.4, 0.22), (0.42, 0.26, 0.13), 0)),
-    ("_wood_rgb", (96, (0.55, 0.36, 0.2), (0.38, 0.24, 0.12), 1)),
-    ("_wood_rgb", (256, (0.64, 0.44, 0.26), (0.46, 0.3, 0.16), 2)),
-    ("_wood_rgb", (64, (0.5, 0.33, 0.18), (0.34, 0.21, 0.1), 3)),
-    ("_checker_rgb", (112, (0.6, 0.38, 0.2), (0.44, 0.27, 0.14), 8)),
-)
-
-# Material groups of the untextured courtyard, in chunk order: (untextured
-# material, first textured material, chunks, textures cycled over).
-_COURTYARD_GROUPS = ((0, 0, 1, 1), (1, 1, 4, 4), (2, 5, 18, 4), (3, 9, 12, 5))
-
-
-def textured_courtyard(subdiv: int):
-    """courtyard_scene(subdiv, textured=True) built without Pillow: the
-    untextured geometry with UVs x 8, each chunk's material from its place
-    in its group (floor, 4 walls, 18 columns, 12 crates; equal chunk sizes
-    within a group), and the 14 textures packed to BGRA straight from the
-    procedural patterns (PNG is lossless, so this is what decoding the PNG
-    gives). Returns (FlattenedScene, textures)."""
-    import numpy as np
-
-    from rayfinder_tpu.scene import procedural
-    from rayfinder_tpu.scene.flatten import FlattenedScene
-    from rayfinder_tpu.scene.texture import Texture
-
-    flat, _ = procedural.courtyard_scene(subdiv, textured=False)
-    group = flat.texture_indices
-    material = np.empty_like(group)
-    for plain, first, chunks, cycle in _COURTYARD_GROUPS:
-        rows = np.nonzero(group == plain)[0]
-        chunk = (rows - rows[0]) // (rows.size // chunks)
-        material[rows] = first + chunk % cycle
-    textures = []
-    for fn, args in _COURTYARD_TEXTURES:
-        rgb = getattr(procedural, fn)(*args)
-        u8 = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8).astype(np.uint32)
-        bgra = u8[..., 2] | (u8[..., 1] << 8) | (u8[..., 0] << 16) | np.uint32(255 << 24)
-        textures.append(Texture(bgra.reshape(-1).astype(np.uint32), width=rgb.shape[1],
-                                height=rgb.shape[0]))
-    scene = FlattenedScene(
-        positions=flat.positions, normals=flat.normals,
-        tex_coords=flat.tex_coords * np.float32(8.0), texture_indices=material,
-    )
-    return scene, textures
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
+# outside the tensor cores, and device memory.
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# Scene tables a walk reads, and the shading tables of K4.
+WALK_TABLES = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_offset", "bvh_second_child",
+               "bvh_tri_count", "bvh_split_axis", "tri_positions")
+SHADE_TABLES = ("tri_attrs", "tex_desc", "texels")
 
 
 def _require(cond: bool, what: str) -> None:
@@ -187,7 +153,7 @@ def _check_walks(scene, o, d, label: str) -> dict:
     )
     print(f"{label}: {n} rays, kernel == plain: {same}", flush=True)
     _require(all(v == n for v in same.values()), f"{label}: K1/K2 differ from the plain walk")
-    return dict(t=t, tri=tri, occ=occ,
+    return dict(t=t, tri=tri, visits=visits, occ=occ,
                 t_err=float((t - pt).abs().max()) if n else 0.0,
                 occ_err=float((occ != pocc).float().max()) if n else 0.0)
 
@@ -283,6 +249,219 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def _nbytes(*tensors) -> int:
+    """Bytes of the tensors among `tensors` (other arguments are skipped)."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def _scene_bytes(scene, shade: bool = False) -> int:
+    return _nbytes(*(getattr(scene, name) for name in WALK_TABLES + (SHADE_TABLES if shade
+                                                                      else ())))
+
+
+def _bound(ops: int, nbytes: int) -> dict:
+    """The least time the card could take: the larger of the operations at
+    the float32 peak and the bytes (each input read once, each output
+    written once) at the memory rate."""
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=int(ops), bytes=int(nbytes))
+
+
+def _walk_ops(work: dict) -> int:
+    """Operations of the walks summed by render.traverse.count_work."""
+    from rayfinder_tpu_torch.ops.counted import walk_operations
+
+    return sum(walk_operations(w[1], w[3]) for w in work.values())
+
+
+def _plain_work(fn):
+    """(result, seconds) of one plain call of fn, and the walks' work
+    (render.traverse.count_work) of a second call."""
+    from rayfinder_tpu_torch.render.traverse import count_work
+
+    out, secs = _timed(fn)
+    with count_work() as work:
+        fn()
+    return out, secs, work
+
+
+def _kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound, path) -> dict:
+    return {"name": name, "route": "cuda", "source": f"rayfinder_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None, "path": path}
+
+
+def _efficiency(dev, card: str) -> tuple[list, dict, object]:
+    """Phase 7: K6 and K7 on the bench's traversal-efficiency path. Returns
+    (kernel entries, efficiency fields, the .pt-loaded scene)."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import (
+        intersect_closest_counted, intersect_closest_counted_reference, walk_operations,
+    )
+    from rayfinder_tpu_torch.ops.slab import (
+        PAIR_OPS, slab_entry_reduce, slab_entry_reduce_reference,
+    )
+    from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
+    from rayfinder_tpu_torch.prof import diag_iters
+    from rayfinder_tpu_torch.prof.scenes import BENCH_CAMERA, courtyard_pt_scene
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    scene, info = courtyard_pt_scene(26, device=dev)
+    print(f"courtyard_scene(26) via GLB -> .pt -> scene: {scene.num_triangles} triangles, "
+          f"{info['bytes']} bytes, prepared in {info['prepare_s']:.1f} s, loaded in "
+          f"{info['load_s']:.1f} s", flush=True)
+    camera = create_camera(*BENCH_CAMERA, 1.0)
+    tri_cluster = diag_iters.scene_tri_clusters(scene)
+    box_min, box_max, count, _ = boxes = diag_iters.leaf_boxes(scene)
+    m = box_min.shape[0]
+
+    # The path: K6 and K7 on the three populations, counts read just after.
+    intersect_closest_counted.launches = 0
+    slab_entry_reduce.launches = 0
+    results, secs = _timed(lambda: dict(diag_iters.populations(scene, camera, 512, 512,
+                                                                 tri_cluster)))
+    launches = (intersect_closest_counted.launches, slab_entry_reduce.launches)
+    print(f"efficiency path: {secs:.1f} s, K6 launches {launches[0]}, K7 launches "
+          f"{launches[1]}, {m} leaves", flush=True)
+    _require(min(launches) > 0, "the efficiency path did not launch K6 and K7")
+    fields = diag_iters.efficiency_fields(results)
+    for name, r in results.items():
+        print("  " + diag_iters.report(name, r), flush=True)
+
+    k7_err = 0.0
+    for name, r in results.items():
+        o, d, counts = r["o"], r["d"], r["counts"]
+        n = o.shape[0]
+        _, pt, ptri, pcounts = intersect_closest_counted_reference(scene, o, d, T_MAX)
+        _, kt, ktri, kvisits = intersect_closest_kernel(scene, o, d, T_MAX)
+        same = dict(t=int((r["t"] == pt).sum()), tri=int((r["tri"] == ptri).sum()),
+                    counts=int((counts == pcounts).all(1).sum()),
+                    k1_t=int((r["t"] == kt).sum()), k1_tri=int((r["tri"] == ktri).sum()),
+                    k1_nodes=int((counts[:, 0] == kvisits).sum()))
+        print(f"  {name}: {n} rays, K6 == plain and K1: {same}", flush=True)
+        _require(all(v == n for v in same.values()), f"{name}: K6 differs from plain or K1")
+        _require(r["need_over_tests"].size == 0,
+                 f"{name}: need > triangle tests on rays {r['need_over_tests'][:20].tolist()}")
+        s = slice(0, 4096)
+        args = (box_min, box_max, count, o[s], (1.0 / d[s]).contiguous(), r["bound"][s],
+                diag_iters.GROUP, True)
+        got, want = slab_entry_reduce(*args), slab_entry_reduce_reference(*args)
+        _require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{name}: K7 differs from its plain version")
+        diff = (got[1] - want[1])[torch.isfinite(want[1])].abs()
+        k7_err = max(k7_err, float(diff.max()) if diff.numel() else 0.0)
+        print(f"  {name}: K7 == plain on {got[0].shape[0]} rays x {m} leaves (need, "
+              f"{want[1].shape[0]} group minima, selection); need <= tests on every ray",
+              flush=True)
+    print("efficiency: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in fields.items() if k.startswith("mt_waste")) + f" [{card}]",
+        flush=True)
+
+    # Times and bounds at the primary population's shape.
+    prim = results["primary"]
+    o, d, n = prim["o"], prim["d"], prim["o"].shape[0]
+    k6_ms = _time_ms(lambda: intersect_closest_counted(scene, o, d, T_MAX), 10)
+    _, k6_plain = _timed(lambda: intersect_closest_counted_reference(scene, o, d, T_MAX))
+    c = prim["counts"].sum(0, dtype=torch.int64).tolist()
+    k6_bound = _bound(walk_operations(c[0], c[2]),
+                      _nbytes(o, d, prim["t"], prim["tri"], prim["counts"]) + 4 * n
+                      + _scene_bytes(scene))
+    inv, bound = (1.0 / d).contiguous(), prim["bound"]
+    args = (box_min, box_max, count, o, inv, bound, diag_iters.GROUP)
+    k7_ms = _time_ms(lambda: slab_entry_reduce(*args), 3)
+    _, k7_plain = _timed(lambda: slab_entry_reduce_reference(*args))
+    k7_bound = _bound(PAIR_OPS * n * m, _nbytes(box_min, box_max, count, o, inv, bound)
+                      + 8 * n)
+    print(f"K6 counted walk: {k6_ms:.3f} ms (plain {k6_plain * 1e3:.1f} ms), bound "
+          f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}); K7 slab entry: "
+          f"{k7_ms:.3f} ms (plain {k7_plain * 1e3:.1f} ms), bound {k7_bound['bound_ms']:.4f} "
+          f"ms ({k7_bound['bound_by']}), at {n} rays x {m} leaves [{card}]", flush=True)
+    entries = [
+        _kernel_entry("intersect_closest_counted", "counted.cu", "prof/diag_iters.py:221",
+                      launches[0], 0.0, k6_ms, k6_plain * 1e3, k6_bound, "phase 7 efficiency"),
+        _kernel_entry("slab_entry_reduce", "slab_entry.cu", "prof/probe_prebuilt.py:28",
+                      launches[1], k7_err, k7_ms, k7_plain * 1e3, k7_bound,
+                      "phase 7 efficiency"),
+    ]
+    fields = {k: v for k, v in fields.items() if not k.startswith("need_over_tests")}
+    fields["rays"] = {name: int(r["o"].shape[0]) for name, r in results.items()}
+    return entries, fields, scene
+
+
+def _probes(dev, card: str, scene) -> tuple[dict, dict]:
+    """Phase 8: K7 at the TPU probe's shapes; K8 in each mode and for each
+    camera against its plain version, then timed. Returns (the K8 kernel
+    entry, the probe numbers)."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import intersect_closest_counted, walk_operations
+    from rayfinder_tpu_torch.ops.skyround import (
+        MODES, REGEN_OPS, SKY_OPS, sky_round, sky_round_reference,
+    )
+    from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
+    from rayfinder_tpu_torch.prof import probe_prebuilt, prof_skyround
+
+    numbers = {}
+    args = probe_prebuilt.probe_inputs(24, dev)
+    got = slab_entry_reduce(*args, probe_prebuilt.G, True)
+    want = slab_entry_reduce_reference(*args, probe_prebuilt.G, True)
+    _require(all(torch.equal(a, b) for a, b in zip(got, want)),
+             "K7 differs from its plain version at the probe's shape")
+    numbers["k7_probe"] = probe_prebuilt.run_probe(24, dev, 200)
+    p = numbers["k7_probe"]
+    print(f"K7 at the probe's shape (24 x 128 boxes x 128 rays) == plain; with group minima "
+          f"{p['with_group_min_ms'] * 1e3:.3f} us, need + selection "
+          f"{p['need_and_first_ms'] * 1e3:.3f} us [{card}]", flush=True)
+
+    rounds = prof_skyround.ROUNDS
+    launches, err, times = 0, 0.0, {}
+    for camera in prof_skyround.CAMERAS:
+        pargs = prof_skyround.probe_args(scene, dev, camera)
+        n = pargs[3].shape[0]
+        hits = float(prof_skyround.first_ray_hits(pargs).float().mean())
+        for mode in MODES:
+            sky_round.launches = 0
+            acc = sky_round(*pargs, 4, mode)
+            launches += sky_round.launches
+            _require(sky_round.launches == 1, f"K8 {mode} did not launch")
+            ref = sky_round_reference(*pargs, 4, mode)
+            diff = float((acc - ref).abs().max())
+            err = max(err, diff)
+            _require(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
+                     f"K8 {camera} {mode}: kernel and plain differ beyond rtol 1e-5")
+            times[f"{camera}_{mode}"] = ms = prof_skyround.time_mode(pargs, mode, rounds, 3)
+            print(f"K8 {camera} camera ({hits:.4f} of first rays hit), {mode:9s}: max |kernel - "
+                  f"plain| at 4 rounds {diff:.3e}; {ms:.3f} ms at {n} lanes x {rounds} rounds, "
+                  f"{ms * 1e6 / (n * rounds):.3f} ns/lane-round [{card}]", flush=True)
+        numbers[f"hit_fraction_{camera}"] = hits
+    numbers["k8_ms"] = times
+
+    # The K8 entry: "full" with the Duck probe's camera at 64 rounds. Its
+    # walks' work is K6's count over the rays of every round.
+    pargs = prof_skyround.probe_args(scene, dev, "duck")
+    n = pargs[3].shape[0]
+    _, plain_s = _timed(lambda: sky_round_reference(*pargs, rounds, "full"))
+    nodes = tests = 0
+    for r in range(rounds):
+        c = intersect_closest_counted(scene, *prof_skyround.sample_rays(pargs, r),
+                                      prof_skyround.T_MAX)[3].sum(0, dtype=torch.int64)
+        nodes, tests = nodes + int(c[0]), tests + int(c[2])
+    bound = _bound(walk_operations(nodes, tests) + n * rounds * (SKY_OPS + REGEN_OPS),
+                   _nbytes(*pargs[3:6]) + 4 * n + _scene_bytes(scene))
+    print(f"K8 full, duck camera, {rounds} rounds: plain {plain_s * 1e3:.1f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]", flush=True)
+    entry = _kernel_entry("sky_round", "skyround.cu", "prof/prof_skyround.py:147", launches,
+                          err, times["duck_full"], plain_s * 1e3, bound, "phase 8 probes")
+    return entry, numbers
+
+
 def main() -> int:
     import torch
 
@@ -294,8 +473,8 @@ def main() -> int:
 
     import numpy as np
 
-    from rayfinder_tpu.scene.procedural import courtyard_scene
     from rayfinder_tpu_torch.ops import _build
+    from rayfinder_tpu_torch.ops.counted import intersect_closest_counted, walk_operations
     from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
     from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs, trace_regen_segs_reference
     from rayfinder_tpu_torch.ops.regen_shaded import (
@@ -314,6 +493,8 @@ def main() -> int:
     from rayfinder_tpu_torch.render.rng import blue_noise_tile, noise_of
     from rayfinder_tpu_torch.render.scene import build_device_scene
     from rayfinder_tpu_torch.render.tiling import block_order
+    from rayfinder_tpu_torch.render.traverse import count_work
+    from rayfinder_tpu_torch.scene.procedural import courtyard_scene
     from rayfinder_tpu_torch.sky.model import sky_state_from_ui
 
     dev = torch.device("cuda", 0)
@@ -354,15 +535,34 @@ def main() -> int:
           f"nodes, built in {time.perf_counter() - t0:.1f} s", flush=True)
     camera = create_camera(*CAMERA, SLICE["width"] / SLICE["height"])
     o, d = _rays(camera, 131072, 131072, seed=0, dev=dev)
+    # The ray queries: K1 and K2 through their wrappers, counts read just
+    # after (then held to the plain walks).
+    intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
     walk = _check_walks(scene26, o, d, "courtyard26 camera+random")
+    k1_launches, k2_launches = intersect_closest_kernel.launches, intersect_any_kernel.launches
     print(f"  hit fraction {float((walk['tri'] >= 0).float().mean()):.4f}, "
           f"occluded fraction {float(walk['occ'].float().mean()):.4f}")
+    # K1's work is K6's count on the same rays (K6 == K1 on t, tri, nodes);
+    # K2's is the plain any-hit walk's count.
+    _, t6, tri6, counts6 = intersect_closest_counted(scene26, o, d, T_MAX)
+    _require(torch.equal(t6, walk["t"]) and torch.equal(tri6, walk["tri"])
+             and torch.equal(counts6[:, 0], walk["visits"]), "K6 differs from K1")
+    c = counts6.sum(0, dtype=torch.int64).tolist()
+    n_rays = o.shape[0]
+    ray_bytes = _nbytes(o, d) + 4 * n_rays + _scene_bytes(scene26)
+    k1_bound = _bound(walk_operations(c[0], c[2]), ray_bytes + 12 * n_rays)
+    with count_work() as work:
+        intersect_any_reference(scene26, o, d, T_MAX)
+    k2_bound = _bound(_walk_ops(work), ray_bytes + n_rays)
     k1_ms = _time_ms(lambda: intersect_closest_kernel(scene26, o, d, T_MAX), 20)
     k1_plain = _time_ms(lambda: intersect_closest_reference(scene26, o, d, T_MAX), 2)
     k2_ms = _time_ms(lambda: intersect_any_kernel(scene26, o, d, T_MAX), 20)
     k2_plain = _time_ms(lambda: intersect_any_reference(scene26, o, d, T_MAX), 2)
-    print(f"K1 closest: {k1_ms:.3f} ms (plain {k1_plain:.1f} ms); K2 any: {k2_ms:.3f} ms "
-          f"(plain {k2_plain:.1f} ms) at 262144 rays [{card}]", flush=True)
+    print(f"K1 closest: {k1_ms:.3f} ms (plain {k1_plain:.1f} ms, bound "
+          f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}); K2 any: {k2_ms:.3f} ms "
+          f"(plain {k2_plain:.1f} ms, bound {k2_bound['bound_ms']:.4f} ms, "
+          f"{k2_bound['bound_by']}) at {n_rays} rays; K6 == K1 on them; nodes/ray "
+          f"{c[0] / n_rays:.2f}, triangle tests/ray {c[2] / n_rays:.2f} [{card}]", flush=True)
 
     # --- 3. small render: kernels vs plain vs the JAX-baked golden ----------
     # The split route through the kernels and the plain versions, and the
@@ -376,7 +576,7 @@ def main() -> int:
         })
 
     # --- 3b. the textured courtyard, built without Pillow -------------------
-    flat8t, tex8t = textured_courtyard(8)
+    flat8t, tex8t = courtyard_scene(8, textured=True)
     scene8t = build_device_scene(flat8t, textures=tex8t, device=dev)
     _render_routes(scene8t, sky, tile, dev, "textured render", np.load(
         GOLDENS / "courtyard_textured_128x96_8spp.npz"), {
@@ -497,11 +697,14 @@ def main() -> int:
     args = (scene26, camera, sky, u, v_tex, nbase, inv_dims, 0, spp, nf, T_MAX,
             sample1, bounce2, flag2, org2, dir2, thr2, srad1, lrad1, sho2, shd2, con2)
     k_out = trace_regen(*args)
-    p_out, k3_plain = _timed(lambda: trace_regen_reference(*args))
+    p_out, k3_plain, work = _plain_work(lambda: trace_regen_reference(*args))
     k3_plain *= 1e3
+    k3_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _scene_bytes(scene26))
     k3_ms = _time_ms(lambda: trace_regen(*args), 5)
-    print(f"K3 trace_regen: {k3_ms:.3f} ms (plain {k3_plain:.1f} ms) at {n} lanes; "
-          f"flags {torch.bincount(flag2, minlength=3).tolist()} [{card}]", flush=True)
+    print(f"K3 trace_regen: {k3_ms:.3f} ms (plain {k3_plain:.1f} ms, bound "
+          f"{k3_bound['bound_ms']:.4f} ms, {k3_bound['bound_by']}) at {n} lanes; flags "
+          f"{torch.bincount(flag2, minlength=3).tolist()}; walks [rays, nodes, leaves, tests] "
+          f"{work} [{card}]", flush=True)
     k3_err = _hold("K3", ("sample", "bounce", "origin", "direction", "thr", "srad", "lrad",
                           "t", "tri"), k_out, p_out, ("sample", "bounce", "tri"), card)
 
@@ -523,13 +726,16 @@ def main() -> int:
             st["origin"], st["direction"], st["thr"], st["srad"], lrad0, st["shadow_o"],
             st["shadow_d"], st["contrib"])
     k_out = trace_regen_shaded(*args)
-    p_out, k4_plain = _timed(lambda: trace_regen_shaded_reference(*args))
+    p_out, k4_plain, work = _plain_work(lambda: trace_regen_shaded_reference(*args))
     k4_plain *= 1e3
+    k4_bound = _bound(_walk_ops(work),
+                      _nbytes(*args, *k_out) + _scene_bytes(scene26, shade=True))
     k4_ms = _time_ms(lambda: trace_regen_shaded(*args), 5)
     live_after = int((k_out[0] < nf).sum())
-    print(f"K4 trace_regen_shaded: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms) at {sizes[1]} "
-          f"lanes, per-tile floor {floor}: live {int((st['sample'] < nf).sum())} -> "
-          f"{live_after} [{card}]", flush=True)
+    print(f"K4 trace_regen_shaded: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, bound "
+          f"{k4_bound['bound_ms']:.4f} ms, {k4_bound['bound_by']}) at {sizes[1]} lanes, "
+          f"per-tile floor {floor}: live {int((st['sample'] < nf).sum())} -> {live_after}; "
+          f"walks {work} [{card}]", flush=True)
     k4_err = _hold("K4", ("sample", "bounce", "flag", "origin", "direction", "thr", "srad",
                           "lrad", "shadow_o", "shadow_d", "contrib"), k_out, p_out,
                    ("sample", "bounce", "flag"), card)
@@ -541,43 +747,46 @@ def main() -> int:
     args = (scene26, camera, sky, u, v_tex, nbase, inv_dims, 0, spp, nf, T_MAX,
             st["salloc"], lrad1, st["cnt"], st["ray"], st["thr"], st["nee"])
     k_out = trace_regen_segs(*args)
-    p_out, k5_plain = _timed(lambda: trace_regen_segs_reference(*args))
+    p_out, k5_plain, work = _plain_work(lambda: trace_regen_segs_reference(*args))
     k5_plain *= 1e3
+    k5_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _scene_bytes(scene26))
     k5_ms = _time_ms(lambda: trace_regen_segs(*args), 5)
-    print(f"K5 trace_regen_segs: {k5_ms:.3f} ms (plain {k5_plain:.1f} ms) at {n} lanes x 2 "
-          f"slots; slot flags {torch.bincount(flags, minlength=3).tolist()} [{card}]",
+    print(f"K5 trace_regen_segs: {k5_ms:.3f} ms (plain {k5_plain:.1f} ms, bound "
+          f"{k5_bound['bound_ms']:.4f} ms, {k5_bound['bound_by']}) at {n} lanes x 2 slots; "
+          f"slot flags {torch.bincount(flags, minlength=3).tolist()}; walks {work} [{card}]",
           flush=True)
     k5_err = _hold("K5", ("salloc", "lrad", "ocnt", "oray", "othr", "t"), k_out, p_out,
                    ("salloc", "ocnt"), card)
 
-    print(card, flush=True)
+    # --- 7. the traversal-efficiency path: K6 and K7 -----------------------
+    eff_entries, efficiency, scene_pt = _efficiency(dev, card)
+
+    # --- 8. the probes: K7 at the TPU probe's shapes, K8 ---------------------
+    k8_entry, probes = _probes(dev, card, scene_pt)
+
+    walk_path = "phase 2 ray queries"
+    regen = "rayfinder_tpu/ops/pallas_regen.py"
     kernels = [
-        ("trace_regen", "regen.cu", ":1211", k3_launches, k3_err, k3_ms, k3_plain),
-        ("trace_regen_shaded", "regen_shaded.cu", ":1715", route_launches["inkernel"],
-         k4_err, k4_ms, k4_plain),
-        ("trace_regen_segs", "regen_segs.cu", ":1393", route_launches["segs2"], k5_err,
-         k5_ms, k5_plain),
+        _kernel_entry("intersect_closest", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2034",
+                      k1_launches, walk["t_err"], k1_ms, k1_plain, k1_bound, walk_path),
+        _kernel_entry("intersect_any", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2051",
+                      k2_launches, walk["occ_err"], k2_ms, k2_plain, k2_bound, walk_path),
+        _kernel_entry("trace_regen", "regen.cu", f"{regen}:1211", k3_launches, k3_err, k3_ms,
+                      k3_plain, k3_bound, "phase 4 slice, split route"),
+        _kernel_entry("trace_regen_shaded", "regen_shaded.cu", f"{regen}:1715",
+                      route_launches["inkernel"], k4_err, k4_ms, k4_plain, k4_bound,
+                      "phase 5 slice, in-kernel route"),
+        _kernel_entry("trace_regen_segs", "regen_segs.cu", f"{regen}:1393",
+                      route_launches["segs2"], k5_err, k5_ms, k5_plain, k5_bound,
+                      "phase 5 slice, segs=2 route"),
+        *eff_entries,
+        k8_entry,
     ]
+    print(card, flush=True)
     print(json.dumps({
-        "kernels": [{
-            "name": name, "route": "cuda", "source": f"rayfinder_tpu_torch/csrc/{src}",
-            "replaces": f"rayfinder_tpu/ops/pallas_regen.py{line}", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        } for name, src, line, launches, err, ms, plain_ms in kernels],
-        # K1/K2 run inline in the path kernels on the main path (their
-        # device functions), so the main path launches them 0 times alone.
-        "standalone": [
-            {"name": "intersect_closest", "route": "cuda",
-             "source": "rayfinder_tpu_torch/csrc/walk.cu",
-             "replaces": "rayfinder_tpu/ops/pallas_walk.py:2034",
-             "runs_inline_in": "trace_regen", "max_abs_err": walk["t_err"],
-             "ms": k1_ms, "plain_ms": k1_plain},
-            {"name": "intersect_any", "route": "cuda",
-             "source": "rayfinder_tpu_torch/csrc/walk.cu",
-             "replaces": "rayfinder_tpu/ops/pallas_walk.py:2051",
-             "runs_inline_in": "trace_regen", "max_abs_err": walk["occ_err"],
-             "ms": k2_ms, "plain_ms": k2_plain},
-        ],
+        "kernels": kernels,
+        "efficiency": efficiency,
+        "probes": probes,
         "slice": {"mrays_per_s": route_rates, "repeats": repeats, "seconds": dt,
                   "closest": closest, "shadow": shadow, "peak_bytes": peak, "card": card},
     }), flush=True)

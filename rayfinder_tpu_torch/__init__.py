@@ -8,17 +8,19 @@ CUDA kernels built at first use from `csrc/` (see `ops/_build.py`): closest
 hit, any hit and the persistent trace/sky/regenerate kernel, with its
 in-kernel-shaded (`inkernel=True`) and multi-segment (`segs=K`) forms for
 the loop's two other routes. Every kernel has a plain PyTorch version beside
-it; a wrapper takes it only for tensors that lie on the CPU.
+it; a wrapper takes it only for tensors that lie on the CPU. The package
+imports nothing of `rayfinder_tpu`: the host code it needs (scene loading,
+BVH build, the `.pt` format, assets) is its own copy.
 
 Quick start::
 
     import torch
-    from rayfinder_tpu.scene.procedural import courtyard_scene
     from rayfinder_tpu_torch import build_device_scene, render_image, SamplingParams, create_camera
+    from rayfinder_tpu_torch.scene.procedural import courtyard_scene
     from rayfinder_tpu_torch.sky.model import sky_state_from_ui
 
     flat, textures = courtyard_scene(8)
-    scene = build_device_scene(flat, textures=textures, device="cuda")
+    scene = build_device_scene(flat, textures=textures)  # on the card
     camera = create_camera([-16, 5, 0], [12, 2, 0], 0.0, 1.0, 70.0, 4 / 3)
     sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
     img = render_image(scene, sky, camera, width=640, height=480,

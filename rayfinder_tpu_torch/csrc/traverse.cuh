@@ -142,14 +142,18 @@ __device__ __forceinline__ bool ray_triangle(const SceneView& s, int tri, Vec3 o
 
 // One thread's near-first stack walk. Returns the leaf-order index of the
 // accepted triangle (-1 if none); *t_best holds its t (t_max if none).
-// kAnyHit stops at the first accepted triangle (shadow rays).
-template <bool kAnyHit>
+// kAnyHit stops at the first accepted triangle (shadow rays). kCount also
+// counts the leaves entered and the triangles tested (K6, counted.cu); with
+// kCount false those counters are compiled out, so K1-K5 keep their code.
+template <bool kAnyHit, bool kCount = false>
 __device__ int walk(const SceneView& s, Vec3 o, Vec3 d, float t_max, float* t_best_out,
-                    int* visits_out) {
+                    int* visits_out, int* leaves_out = nullptr, int* tests_out = nullptr) {
   const Vec3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float t_best = t_max;
   int hit_tri = -1;
   int visits = 0;
+  int leaves = 0;
+  int tests = 0;
   int stack[kStackDepth];
   int sp = 0;
   int node = 0;
@@ -159,16 +163,22 @@ __device__ int walk(const SceneView& s, Vec3 o, Vec3 d, float t_max, float* t_be
     if (ray_aabb(s, node, o, inv, t_best)) {
       const int count = s.tri_count[node];
       if (count > 0) {
+        if (kCount) ++leaves;
         const int first = s.tri_offset[node];
         for (int k = 0; k < count; ++k) {
           const int tri = min(first + k, s.num_tris - 1);
           float t;
+          if (kCount) ++tests;
           if (ray_triangle(s, tri, o, d, t_best, &t)) {
             t_best = t;
             hit_tri = tri;
             if (kAnyHit) {
               *t_best_out = t_best;
               if (visits_out) *visits_out = visits;
+              if (kCount) {
+                *leaves_out = leaves;
+                *tests_out = tests;
+              }
               return hit_tri;
             }
           }
@@ -193,12 +203,24 @@ __device__ int walk(const SceneView& s, Vec3 o, Vec3 d, float t_max, float* t_be
   }
   *t_best_out = t_best;
   if (visits_out) *visits_out = visits;
+  if (kCount) {
+    *leaves_out = leaves;
+    *tests_out = tests;
+  }
   return hit_tri;
 }
 
 __device__ __forceinline__ int closest_hit(const SceneView& s, Vec3 o, Vec3 d, float t_max,
                                            float* t_out, int* visits_out) {
   return walk<false>(s, o, d, t_max, t_out, visits_out);
+}
+
+// closest_hit that also counts the work: nodes visited, leaves entered,
+// triangles tested.
+__device__ __forceinline__ int closest_hit_counted(const SceneView& s, Vec3 o, Vec3 d,
+                                                   float t_max, float* t_out, int* visits_out,
+                                                   int* leaves_out, int* tests_out) {
+  return walk<false, true>(s, o, d, t_max, t_out, visits_out, leaves_out, tests_out);
 }
 
 __device__ __forceinline__ bool any_hit(const SceneView& s, Vec3 o, Vec3 d, float t_max) {

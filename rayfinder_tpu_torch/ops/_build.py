@@ -29,7 +29,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu")
+SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu", "counted.cu",
+           "slab_entry.cu", "skyround.cu")
 HEADERS = ("traverse.cuh", "path.cuh", "shade.cuh")
 # Flags of each source's compile; the objects are then linked with -shared.
 NVCC_FLAGS = (
@@ -56,6 +57,13 @@ _ARGTYPES = {
     "rf_trace_regen_shaded": _SCENE_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25 + [_P],
     # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
     "rf_trace_regen_segs": _SCENE_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
+    # ..., origin, direction, t_max, n, t, tri, counts, stream
+    "rf_intersect_closest_counted": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
+    # box_min, box_max, weight, m, group, origin, inv_dir, bound, n, need,
+    # group_min (or null), first_group, stream
+    "rf_slab_entry_reduce": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    # ..., params, n, rounds, mode, u, v_tex, noise_base, acc, stream
+    "rf_sky_round": _SCENE_ARGTYPES + [_P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

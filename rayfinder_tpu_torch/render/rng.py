@@ -15,7 +15,7 @@ import pathlib
 import numpy as np
 import torch
 
-_ASSETS = pathlib.Path(__file__).resolve().parents[2] / "rayfinder_tpu" / "assets"
+_ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 
 # wgsl:609-610
 A1 = np.float32(0.7548776662466927)

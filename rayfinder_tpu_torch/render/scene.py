@@ -9,6 +9,10 @@ itself, one thread per ray.
 Texels are stored as the int32 view of the packed BGRA uint32 words, because
 torch's uint32 supports few operations; shifts and masks on the int32 view
 (`(w >> 16) & 0xFF`) give the same bytes.
+
+The entry points put the scene on the card unless the caller names another
+device. They take the port's `FlattenedScene` and `Texture` and the JAX
+package's alike (dataclasses with the same fields).
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import pathlib
 import numpy as np
 import torch
 
-from rayfinder_tpu.bvh import Bvh, reorder_attributes
-from rayfinder_tpu.scene import FlattenedScene, Texture
+from ..bvh import Bvh, reorder_attributes
+from ..scene import FlattenedScene, Texture
 
 # Packed-texel-atlas budget, as in rayfinder_tpu.render.scene (the
 # reference's storage-buffer binding limit for its texture buffer).
@@ -147,30 +151,30 @@ def build_device_scene(
     flat: FlattenedScene,
     bvh: Bvh | None = None,
     textures: list[Texture] | None = None,
-    device="cpu",
+    device="cuda",
 ) -> DeviceScene:
     """Build the BVH (if not given) with the native builder, reorder the
     attributes into leaf order, pack textures into one atlas, and upload
     everything to `device`."""
     if bvh is None:
-        from rayfinder_tpu.bvh.native import build_bvh_fast
+        from ..bvh.native import build_bvh_fast
 
         bvh = build_bvh_fast(flat.positions)
     return _upload(_scene_arrays(flat, bvh, textures), device)
 
 
-def scene_from_jax(arrays: dict[str, np.ndarray], device="cpu") -> DeviceScene:
+def scene_from_jax(arrays: dict[str, np.ndarray], device="cuda") -> DeviceScene:
     """Carry a JAX `DeviceScene` over: `arrays` maps its field names to
     numpy arrays (`np.asarray` of each field). The TPU cluster fields are
     ignored."""
     return _upload(arrays, device)
 
 
-def load_device_scene(path, device="cpu") -> DeviceScene:
+def load_device_scene(path, device="cuda") -> DeviceScene:
     """Load a .glb/.gltf or .pt file straight into a DeviceScene."""
     path = pathlib.Path(path)
     if path.suffix == ".pt":
-        from rayfinder_tpu.io.ptformat import read_pt
+        from ..io.ptformat import read_pt
 
         pt = read_pt(path)
         flat = FlattenedScene(
@@ -185,7 +189,7 @@ def load_device_scene(path, device="cpu") -> DeviceScene:
             triangle_indices=np.arange(pt.tri_positions.shape[0], dtype=np.int64),
         )
         return build_device_scene(flat, bvh=bvh, textures=pt.textures, device=device)
-    from rayfinder_tpu.scene import load_gltf
+    from ..scene import load_gltf
 
     scene = load_gltf(path)
     flat = FlattenedScene.from_scene(scene)

@@ -12,7 +12,11 @@ is dropped, the pointer still moves) are those of the JAX loop, so `t`,
 This is the plain version of the traversal that the CUDA kernels run per
 thread (csrc/traverse.cuh). Here all rays step in lockstep: one step is one
 node visit, and a leaf's triangles are tested within the step that enters
-it; rays that finish leave the batch.
+it; rays that finish leave the batch. With `count`, it also counts each
+ray's leaves entered and triangles tested, as the counted walk K6
+(csrc/counted.cu) does. Inside `with count_work() as work`, every walk
+counts, and `work` sums the work of all of them: what a kernel's bound is
+computed from.
 """
 
 from __future__ import annotations
@@ -24,19 +28,49 @@ from .scene import DeviceScene
 
 STACK_DEPTH = 32
 
+_work = None
 
-def _traverse(scene: DeviceScene, origin, direction, t_max, any_hit: bool):
+
+class count_work:
+    """Context in which every plain walk also counts its work. The value is
+    {"closest": [rays, nodes, leaves, tests], "any": [...]}, summed over the
+    walks run inside the context."""
+
+    def __enter__(self):
+        global _work
+        _work = {"closest": [0, 0, 0, 0], "any": [0, 0, 0, 0]}
+        return _work
+
+    def __exit__(self, *exc):
+        global _work
+        _work = None
+
+
+def _traverse(scene: DeviceScene, origin, direction, t_max, any_hit: bool,
+              count: bool = False):
+    if _work is None or count:
+        return _walk(scene, origin, direction, t_max, any_hit, count)
+    hit, t, tri, counts = _walk(scene, origin, direction, t_max, any_hit, True)
+    sums = _work["any" if any_hit else "closest"]
+    sums[0] += counts.shape[0]
+    for k, total in enumerate(counts.sum(0, dtype=torch.int64).tolist()):
+        sums[k + 1] += total
+    return hit, t, tri, counts[:, 0]
+
+
+def _walk(scene: DeviceScene, origin, direction, t_max, any_hit: bool, count: bool):
     """origin/direction: (B, 3) f32; t_max: float or (B,) f32.
 
     Returns (hit, t, tri_idx, nodes_visited), each (B,); for any_hit the
     walk stops at the first accepted intersection (shadow rays,
-    wgsl:321-368)."""
+    wgsl:321-368). With count, nodes_visited is (B, 3) int32: nodes
+    visited, leaves entered, triangles tested."""
     batch = origin.shape[0]
     dev = origin.device
     inv_dir = 1.0 / direction
     t_full = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(batch).clone()
     tri_full = torch.full((batch,), -1, dtype=torch.int32, device=dev)
-    visits_full = torch.zeros(batch, dtype=torch.int32, device=dev)
+    visits_full = torch.zeros((batch, 3) if count else (batch,), dtype=torch.int32, device=dev)
     if batch == 0:
         return tri_full >= 0, t_full, tri_full, visits_full
 
@@ -57,12 +91,15 @@ def _traverse(scene: DeviceScene, origin, direction, t_max, any_hit: bool):
 
     while lane.numel():
         active = ~done
-        visits = visits + active.to(torch.int32)
+        if count:
+            visits[:, 0] += active.to(torch.int32)
+        else:
+            visits = visits + active.to(torch.int32)
         aabb_hit = active & ray_aabb(
             o, inv, neg, scene.bvh_aabb_min[node], scene.bvh_aabb_max[node], t_best
         )
-        count = scene.bvh_tri_count[node]
-        is_leaf = count > 0
+        tri_count = scene.bvh_tri_count[node]
+        is_leaf = tri_count > 0
 
         # Leaf hit: test its triangles in order against the shrinking bound.
         # All slots of the rays entering a leaf are tested at once without
@@ -75,14 +112,20 @@ def _traverse(scene: DeviceScene, origin, direction, t_max, any_hit: bool):
             v = pos[tris]  # (leaves, max_leaf, 3, 3)
             geo_hit, t, _, _ = ray_triangle(
                 o[leaf, None], d[leaf, None], v[:, :, 0], v[:, :, 1], v[:, :, 2], float("inf"))
-            bound, best, stop, n_tri = t_best[leaf], hit_tri[leaf], done[leaf], count[leaf]
+            bound, best, stop, n_tri = t_best[leaf], hit_tri[leaf], done[leaf], tri_count[leaf]
+            tested = torch.zeros_like(n_tri)
             for k in range(max_leaf):
+                if count:
+                    tested += ((k < n_tri) & ~stop).to(torch.int32)
                 hit = (k < n_tri) & ~stop & geo_hit[:, k] & (t[:, k] < bound)
                 bound = torch.where(hit, t[:, k], bound)
                 best = torch.where(hit, tris[:, k].to(torch.int32), best)
                 if any_hit:
                     stop = stop | hit
             t_best[leaf], hit_tri[leaf], done[leaf] = bound, best, stop
+            if count:
+                visits[leaf, 1] += 1
+                visits[leaf, 2] += tested
 
         # Interior hit: push the far child, descend into the near child
         # (near-first via dirNeg[splitAxis], wgsl:408-418).
@@ -125,6 +168,14 @@ def intersect_closest(scene: DeviceScene, origin, direction, t_max):
     (hit, t, tri_idx, nodes_visited), each (B,); tri_idx is in leaf order,
     -1 on a miss, and t is t_max there."""
     return _traverse(scene, origin, direction, t_max, any_hit=False)
+
+
+def intersect_closest_counted(scene: DeviceScene, origin, direction, t_max):
+    """intersect_closest that also counts each ray's work. Returns (hit, t,
+    tri_idx, counts): counts (B, 3) int32 = nodes visited, leaves entered,
+    triangles tested; the first column is intersect_closest's
+    nodes_visited."""
+    return _traverse(scene, origin, direction, t_max, any_hit=False, count=True)
 
 
 def intersect_any(scene: DeviceScene, origin, direction, t_max):

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 
-# The fit tables are shared with the JAX package.
-_ASSETS = pathlib.Path(__file__).resolve().parents[2] / "rayfinder_tpu" / "assets"
+# The fit tables: the port's copy of the JAX package's asset.
+_ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 
 
 class SkyParams(NamedTuple):

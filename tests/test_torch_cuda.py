@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from rayfinder_tpu.scene.procedural import courtyard_scene
+from rayfinder_tpu_torch.scene.procedural import courtyard_scene
 
 GOLDENS = pathlib.Path(__file__).resolve().parent / "goldens"
 
@@ -95,14 +95,9 @@ def test_render_kernel_matches_plain_and_golden(dev, scene8):
 
 @pytest.fixture(scope="module")
 def textured4(dev):
-    import sys
-
     from rayfinder_tpu_torch.render.scene import build_device_scene
 
-    sys.path.insert(0, str(GOLDENS.parent.parent))
-    from chip_smoke import textured_courtyard
-
-    flat, textures = textured_courtyard(4)
+    flat, textures = courtyard_scene(4, textured=True)
     return build_device_scene(flat, textures=textures, device=dev)
 
 
@@ -139,3 +134,92 @@ def test_route_kernels_match_plain(dev, textured4, route):
     torch.testing.assert_close(kernel, split, rtol=1e-5, atol=1e-5)
     if k_rays is not None:
         assert torch.equal(k_rays, p_rays) and torch.equal(k_rays, s_rays)
+
+
+def _probe_rays(dev, n=4096, seed=21):
+    """Camera rays of the bench view and random rays inside the courtyard."""
+    from rayfinder_tpu_torch.render.camera import create_camera, primary_ray
+
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    cam = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, 1.0)
+    u, v = (torch.from_numpy(a).to(dev) for a in rng.uniform(size=(2, half)).astype(np.float32))
+    noise = torch.from_numpy(rng.uniform(size=(half, 2)).astype(np.float32)).to(dev)
+    co, cd = primary_ray(cam, u, v, noise, (1.0 / 64, 1.0 / 64))
+    ro = np.stack([rng.uniform(-19, 19, half), rng.uniform(0.5, 11, half),
+                   rng.uniform(-9, 9, half)], axis=1).astype(np.float32)
+    rd = rng.normal(size=(half, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return (torch.cat([co, torch.from_numpy(ro).to(dev)]).contiguous(),
+            torch.cat([cd, torch.from_numpy(rd).to(dev)]).contiguous())
+
+
+def test_counted_kernel_matches_plain_and_k1(dev, scene8):
+    """K6 against its plain version (t, tri, all counts) and against K1 (t,
+    tri, nodes visited), exactly."""
+    from rayfinder_tpu_torch.ops import counted, walk
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    o, d = _probe_rays(dev)
+    before = counted.intersect_closest_counted.launches
+    got = counted.intersect_closest_counted(scene8, o, d, T_MAX)
+    assert counted.intersect_closest_counted.launches == before + 1
+    want = counted.intersect_closest_counted_reference(scene8, o, d, T_MAX)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    k1 = walk.intersect_closest_kernel(scene8, o, d, T_MAX)
+    for a, b in zip(got[:3], k1[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3][:, 0], k1[3])
+
+
+@pytest.mark.parametrize("group,with_group_min", [(128, True), (7, True), (128, False)])
+def test_slab_kernel_matches_plain(dev, group, with_group_min):
+    """K7's need, group minima and selection against its plain version,
+    exactly, with flat boxes and axis-parallel rays (NaN slab terms)."""
+    from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
+
+    rng = np.random.default_rng(group)
+    m, n = 1000, 3000
+    lo = rng.uniform(-4, 4, (m, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.0, 2.0, (m, 3)).astype(np.float32)
+    hi[::7, 1] = lo[::7, 1]
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[rng.random((n, 3)) < 1 / 3] = 0.0
+    d[np.all(d == 0, axis=1), 2] = 1.0
+    o[::5, 0] = lo[rng.integers(0, m, o[::5].shape[0]), 0]
+    with np.errstate(divide="ignore"):
+        inv = (np.float32(1.0) / d).astype(np.float32)
+    bound = rng.uniform(0.5, 12.0, n).astype(np.float32)
+    weight = rng.integers(1, 3, m).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (lo, hi, weight, o, inv, bound)]
+    before = slab_entry_reduce.launches
+    got = slab_entry_reduce(*args, group, with_group_min)
+    assert slab_entry_reduce.launches == before + 1
+    want = slab_entry_reduce_reference(*args, group, with_group_min)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert bool((got[2] >= 0).any()) and bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("mode", ["full", "nosweep", "sweeponly", "noop", "fullwhile"])
+def test_sky_round_kernel_matches_plain(dev, scene8, mode):
+    """K8 against its plain version on lanes that meet sky and geometry;
+    the same device functions and the same order of operations, so equal
+    to float32 rounding (rtol 1e-5 states the budget, 0 is expected)."""
+    from rayfinder_tpu_torch.ops.skyround import sky_round, sky_round_reference
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    u = torch.from_numpy(np.tile(np.linspace(0.05, 0.95, 256, dtype=np.float32), 3)).to(dev)
+    v = torch.from_numpy(np.repeat(np.asarray([0.05, 0.3, 0.6], np.float32), 256)).to(dev)
+    nb = torch.tensor([0.25, 0.75], device=dev).expand(768, 2).contiguous()
+    args = (scene8, create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, 4 / 3),
+            sky_state_from_ui(1.0, (1.0, 1.0, 1.0), 30.0, 0.0), u, v, nb,
+            (float(np.float32(1) / np.float32(800)), float(np.float32(1) / np.float32(600))))
+    before = sky_round.launches
+    got = sky_round(*args, 4, mode)
+    assert sky_round.launches == before + 1
+    want = sky_round_reference(*args, 4, mode)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

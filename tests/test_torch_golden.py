@@ -2,7 +2,8 @@
 (tests/goldens/bake_torch_smoke.py): the untextured and the textured
 courtyard_scene(8) at 128x96, 8 spp, 4 bounces, exposure 0.25.
 chip_smoke.py holds the CUDA kernels to the same goldens on the card, with
-the textured scene built without Pillow (chip_smoke.textured_courtyard)."""
+the textured scene built without Pillow by the port's own
+scene.procedural."""
 
 import pathlib
 import sys
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from rayfinder_tpu.scene.procedural import courtyard_scene
+from rayfinder_tpu.scene.procedural import courtyard_scene as jax_courtyard_scene
+from rayfinder_tpu_torch.scene.procedural import courtyard_scene
 from rayfinder_tpu_torch.render.camera import create_camera
 from rayfinder_tpu_torch.render.pathtracer import (
     SamplingParams, accumulate_samples_regen, render_image,
@@ -24,9 +26,7 @@ from rayfinder_tpu_torch.sky.model import sky_state_from_ui
 
 GOLDENS = pathlib.Path(__file__).resolve().parent / "goldens"
 sys.path.insert(0, str(GOLDENS))
-sys.path.insert(0, str(GOLDENS.parent.parent))
 import bake_torch_smoke as cfg  # noqa: E402
-from chip_smoke import textured_courtyard  # noqa: E402
 
 
 def _rmse(a, b):
@@ -36,7 +36,7 @@ def _rmse(a, b):
 def test_plain_path_reproduces_jax_golden():
     golden = np.load(GOLDENS / "courtyard_untextured_128x96_8spp.npz")
     flat, textures = courtyard_scene(cfg.SUBDIV, textured=False)
-    scene = build_device_scene(flat, textures=textures)
+    scene = build_device_scene(flat, textures=textures, device="cpu")
     w, h, spp = cfg.WIDTH, cfg.HEIGHT, cfg.SPP
     accum, rays = accumulate_samples_regen(
         scene, sky_state_from_ui(*cfg.SKY), create_camera(*cfg.CAMERA, w / h),
@@ -54,7 +54,7 @@ def test_plain_path_reproduces_jax_golden():
 def test_render_image_is_the_accumulated_estimate():
     """render_image = accumulate in dispatches, unswizzle, mean, tonemap."""
     flat, textures = courtyard_scene(4, textured=False)
-    scene = build_device_scene(flat, textures=textures)
+    scene = build_device_scene(flat, textures=textures, device="cpu")
     w, h, spp = 32, 24, 4
     cam, sky = create_camera(*cfg.CAMERA, w / h), sky_state_from_ui(*cfg.SKY)
     img = render_image(scene, sky, cam, width=w, height=h,
@@ -70,7 +70,7 @@ def test_render_image_is_the_accumulated_estimate():
 def test_plain_path_reproduces_textured_jax_golden():
     golden = np.load(cfg.golden_path(textured=True))
     flat, textures = courtyard_scene(cfg.SUBDIV, textured=True)
-    scene = build_device_scene(flat, textures=textures)
+    scene = build_device_scene(flat, textures=textures, device="cpu")
     w, h, spp = cfg.WIDTH, cfg.HEIGHT, cfg.SPP
     accum, rays = accumulate_samples_regen(
         scene, sky_state_from_ui(*cfg.SKY), create_camera(*cfg.CAMERA, w / h),
@@ -86,10 +86,11 @@ def test_plain_path_reproduces_textured_jax_golden():
 
 @pytest.mark.parametrize("subdiv", [2, 8])
 def test_textured_courtyard_without_pillow_is_bit_exact(subdiv):
-    """chip_smoke.textured_courtyard (for the GPU machine, which has no
-    Pillow) equals courtyard_scene(subdiv, textured=True) bit for bit."""
-    got, got_tex = textured_courtyard(subdiv)
-    want, want_tex = courtyard_scene(subdiv, textured=True)
+    """The port's courtyard_scene(subdiv, textured=True), built without
+    Pillow for the GPU machine, equals the JAX package's (textures
+    round-tripped through PNG with Pillow) bit for bit."""
+    got, got_tex = courtyard_scene(subdiv, textured=True)
+    want, want_tex = jax_courtyard_scene(subdiv, textured=True)
     for field in ("positions", "normals", "tex_coords", "texture_indices"):
         a, b = getattr(got, field), getattr(want, field)
         assert a.dtype == b.dtype and np.array_equal(a, b), field

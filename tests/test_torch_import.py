@@ -1,10 +1,14 @@
-"""The port runs without JAX: the machine with the GPU has none.
+"""The port runs without JAX and without the JAX package: the machine with
+the GPU has no JAX, and the port keeps its own copies of what it needs.
 
-A subprocess blocks `jax` and imports every module of rayfinder_tpu_torch and
-chip_smoke. A static check keeps JAX imports, library stand-ins for the
-kernels and fallbacks around kernel launches out of the package.
+A subprocess blocks `jax` and `rayfinder_tpu`, imports every module of
+rayfinder_tpu_torch and chip_smoke, reads the port's data files and builds a
+scene, and fails if any file under rayfinder_tpu/ was opened. A static check
+keeps JAX and JAX-package imports, library stand-ins for the kernels and
+fallbacks around kernel launches out of the package.
 """
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -25,16 +29,35 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = list(_modules()) + ["chip_smoke"]
-    for m in ("ops.regen", "ops.regen_shaded", "ops.regen_segs", "render.shade"):
+    for m in ("ops.regen", "ops.regen_shaded", "ops.regen_segs", "render.shade", "ops.counted",
+              "ops.slab", "ops.skyround", "prof.diag_iters", "scene.procedural", "io.ptformat"):
         assert f"rayfinder_tpu_torch.{m}" in mods
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['rayfinder_tpu'] = None\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"banned = os.path.join({str(ROOT)!r}, 'rayfinder_tpu') + os.sep\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes, os.PathLike)):\n"
+        "        path = os.path.abspath(os.fsdecode(args[0]))\n"
+        "        if path.startswith(banned):\n"
+        "            opened.append(path)\n"
+        "sys.addaudithook(hook)\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v)\n"
+        "from rayfinder_tpu_torch.render.rng import blue_noise_tile\n"
+        "from rayfinder_tpu_torch.render.scene import build_device_scene\n"
+        "from rayfinder_tpu_torch.scene.procedural import courtyard_scene\n"
+        "from rayfinder_tpu_torch.sky.model import sky_state_from_ui\n"
+        "blue_noise_tile()\n"
+        "sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)\n"
+        "flat, textures = courtyard_scene(2, textured=True)\n"
+        "build_device_scene(flat, textures=textures, device='cpu')\n"
+        "assert not opened, opened\n"
+        "assert not any(k.split('.')[0] in ('jax', 'rayfinder_tpu') for k, v in sys.modules.items() if v)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -54,6 +77,23 @@ def test_package_sources_hold_no_stand_ins():
             assert banned not in text, f"{path.name}: {banned}"
         if path.suffix == ".py" and path.parent != ROOT:
             assert "try:" not in text, f"{path.name}: try around a launch"
+
+
+def test_package_imports_nothing_of_the_jax_package():
+    """No import of rayfinder_tpu and no path built into its directory, in
+    the package or in chip_smoke.py."""
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                names = []
+            for name in names:
+                assert name.split(".")[0] != "rayfinder_tpu", f"{path.name}: imports {name}"
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert node.value.strip("/") != "rayfinder_tpu", f"{path.name}: path into it"
 
 
 def test_kernel_sources_use_no_fast_math():

@@ -166,7 +166,7 @@ def test_noise_exact():
 
 def test_eval_texture_exact():
     flat, textures = courtyard_scene(4, textured=True)
-    port = build_device_scene(flat, textures=textures)
+    port = build_device_scene(flat, textures=textures, device="cpu")
     want_scene = jax_build(flat, textures=textures)
     r = np.random.default_rng(SEED + 3)
     n = 20000

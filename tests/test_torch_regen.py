@@ -64,7 +64,7 @@ def test_trace_regen_matches_pallas_kernel():
     from rayfinder_tpu.ops.pallas_regen import pallas_trace_regen
 
     jscene = _procedural()
-    port = scene_from_jax({k: np.asarray(v) for k, v in vars(jscene).items()})
+    port = scene_from_jax({k: np.asarray(v) for k, v in vars(jscene).items()}, device="cpu")
     w, h, nf, spp, nb = 40, 32, 3, 3, 2
     jcam = jax_camera([0.0, 0.0, 12.0], [0.0, 0.0, 0.0], 0.0, 1.0, 70.0, w / h)
     cam = create_camera([0.0, 0.0, 12.0], [0.0, 0.0, 0.0], 0.0, 1.0, 70.0, w / h)
@@ -130,7 +130,7 @@ def jpt_noise(nbase, sample, spp):
 
 def test_trace_regen_wrapper_runs_plain_version_on_cpu():
     flat, textures = courtyard_scene(2)
-    scene = build_device_scene(flat, textures=textures)
+    scene = build_device_scene(flat, textures=textures, device="cpu")
     cam = create_camera(*CAM)
     sky = sky_state_from_ui(*SKY)
     u, v, nbase = (torch.from_numpy(a) for a in _lanes(16, 8))
@@ -152,7 +152,7 @@ def test_trace_regen_wrapper_runs_plain_version_on_cpu():
 @pytest.fixture(scope="module")
 def courtyard():
     flat, textures = courtyard_scene(8)
-    return build_device_scene(flat, textures=textures), jax_build(flat, textures=textures)
+    return build_device_scene(flat, textures=textures, device="cpu"), jax_build(flat, textures=textures)
 
 
 def _jax_regen(jscene, num_bounces, **kw):

@@ -48,9 +48,9 @@ def test_scene_matches_jax(source, tmp_path):
     flat, textures = courtyard_scene(4, textured=source == "courtyard4_textured")
     if source == "pt_roundtrip":
         pt = _pt_file(tmp_path, flat, textures)
-        port, want = load_device_scene(pt), jax_load(pt)
+        port, want = load_device_scene(pt, device="cpu"), jax_load(pt)
     else:
-        port, want = build_device_scene(flat, textures=textures), jax_build(flat, textures=textures)
+        port, want = build_device_scene(flat, textures=textures, device="cpu"), jax_build(flat, textures=textures)
     assert port.num_triangles == want.num_triangles
     assert port.num_nodes == want.num_nodes
     _assert_same(port, want)
@@ -60,16 +60,16 @@ def test_scene_from_jax_carries_every_field():
     flat, textures = courtyard_scene(4, textured=True)
     want = jax_build(flat, textures=textures)
     arrays = {f.name: np.asarray(getattr(want, f.name)) for f in dataclasses.fields(want)}
-    port = scene_from_jax(arrays)
+    port = scene_from_jax(arrays, device="cpu")
     _assert_same(port, want)
-    built = build_device_scene(flat, textures=textures)
+    built = build_device_scene(flat, textures=textures, device="cpu")
     for name in FIELDS:
         assert torch.equal(getattr(port, name), getattr(built, name)), name
 
 
 def test_scene_to_device_keeps_values():
     flat, textures = courtyard_scene(2)
-    scene = build_device_scene(flat, textures=textures)
+    scene = build_device_scene(flat, textures=textures, device="cpu")
     moved = scene.to("cpu")
     assert moved.device == torch.device("cpu")
     for name in FIELDS:
@@ -82,4 +82,4 @@ def test_oversized_texture_atlas_raises(monkeypatch):
     flat, textures = courtyard_scene(2, textured=False)
     monkeypatch.setattr(port_scene, "MAX_TEXEL_BYTES", 8)
     with pytest.raises(ValueError, match="exceeds"):
-        build_device_scene(flat, textures=textures)
+        build_device_scene(flat, textures=textures, device="cpu")

@@ -45,7 +45,7 @@ STATE = ("sample", "bounce", "flag", "origin", "direction", "thr", "srad", "lrad
 def scenes():
     flat, textures = courtyard_scene(2, textured=True)
     jscene = jax_build(flat, textures=textures)
-    return scene_from_jax({k: np.asarray(v) for k, v in vars(jscene).items()}), jscene
+    return scene_from_jax({k: np.asarray(v) for k, v in vars(jscene).items()}, device="cpu"), jscene
 
 
 def _lanes(w, h):

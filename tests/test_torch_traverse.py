@@ -35,7 +35,7 @@ GOLDENS = __import__("pathlib").Path(__file__).parent / "goldens"
 @pytest.fixture(scope="module")
 def scenes():
     flat, textures = courtyard_scene(8)
-    return build_device_scene(flat, textures=textures), jax_build(flat, textures=textures)
+    return build_device_scene(flat, textures=textures, device="cpu"), jax_build(flat, textures=textures)
 
 
 def _rays(n_camera=2048, n_random=2048, seed=11):
