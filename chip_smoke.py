@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch port (rayfinder_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [--define RF_SEGS_MIN_BLOCKS=8]
 
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (nvcc). It imports only the port. It builds the port's CUDA
 kernels from csrc/, then:
 
-1. prints the card's name and power limit and the build time;
+1. prints the card's name and power limit, the build time, and each
+   kernel's registers, stack frame and spills (ptxas);
 2. runs the closest-hit (K1) and any-hit (K2) kernels on the 256 rays of
    each *_courtyard8.npz golden and on 262,144 camera and random rays over
    the 254K-triangle courtyard, and holds them to their plain torch
@@ -29,7 +31,9 @@ kernels from csrc/, then:
    and through the in-kernel route in one K4 call per dispatch
    (compact_floor = the batch); holds their accumulations to the split
    route's and the segs ray counts to its counts, and times three more
-   dispatches of each route in turns;
+   dispatches of each route in turns; then one instrumented dispatch of the
+   split and of the segs=2 route gives K3's and K5's device time per
+   launch, summed by the launch's lane count;
 6. holds each path kernel (K3, K4, K5) to its plain version at the slice's
    shapes, and counts the walks' work of each call;
 7. the traversal efficiency of the bench (prof/diag_iters.py): the
@@ -49,12 +53,24 @@ Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
 (time, plain time, launches on the run that drives each kernel, bound);
 the last is {"ok": true, "device": {...}}.
+
+A kernel's time is the mean over launches of one CUDA event pair around
+each launch, with a busy-wait queued ahead of the start event so that the
+host's time between launches is not counted (_timed_call).
+
+--kernel-times runs phases 1, 2 (on the big courtyard only), the
+instrumented dispatches of 5, 6 and 8 (K8 on the built courtyard), and
+prints their kernel numbers as one JSON line. Those phases use nothing
+that the port lacked before its packed walk tables, so a copy of this
+script times an older tree in turns with a newer one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -68,14 +84,23 @@ CAMERA = ([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0)
 SKY = (2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
 
 
+# Cycles of the busy-wait queued ahead of each timed launch (about 1 ms at
+# the H100's clock): longer than the host takes to queue one launch.
+QUEUE_AHEAD_CYCLES = 2_000_000
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores, and device memory.
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# Scene tables a walk reads, and the shading tables of K4.
-WALK_TABLES = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_offset", "bvh_second_child",
-               "bvh_tri_count", "bvh_split_axis", "tri_positions")
+# The BVH's SoA planes (the walk of K1, K2, K4, K6, K8), and the shading
+# tables of K4.
+NODE_PLANES = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_offset", "bvh_second_child",
+               "bvh_tri_count", "bvh_split_axis")
 SHADE_TABLES = ("tri_attrs", "tex_desc", "texels")
+# The packed walk of K3 and K5 reads one 64-byte record per interior node,
+# and the root's rows of four of the planes.
+RECORD_BYTES = 64
+ROOT_ROW_BYTES = 32
 
 
 def _require(cond: bool, what: str) -> None:
@@ -91,18 +116,97 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _timed_call(fn, log: list, *args, ahead: int = QUEUE_AHEAD_CYCLES):
+    """fn(*args) between two CUDA events, appended to log as (start, stop).
+    A busy-wait of `ahead` cycles (0: none) is queued ahead of the start
+    event, so that the card reaches the start event only after the host has
+    queued the launch behind it: the pair spans the launch's device time,
+    with no host gap in it."""
+    import torch
+
+    if ahead:
+        torch.cuda._sleep(ahead)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    stop.record()
+    log.append((start, stop))
+    return out
+
+
 def _time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean device time of fn() over reps launches, after one warm-up: one
+    event pair around each launch, averaged. The launches run back to back
+    behind one busy-wait long enough for the host to queue them all, so no
+    host gap falls inside a pair."""
     import torch
 
     fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    pairs = []
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES * reps)
+    for _ in range(reps):
+        _timed_call(fn, pairs, ahead=0)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def _kernel_times_by_width(field: str, dispatch) -> tuple[dict, list]:
+    """Run dispatch() with the "kernel" engine's `field` path kernel (split:
+    K3, segs: K5) behind _timed_call. Returns {lanes: [launches, ms]}, the
+    kernel's device time summed over its launches at each lane count, and
+    the device time of each launch in launch order."""
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+
+    engine = pt._ENGINES["kernel"]
+    kernel = getattr(engine, field)
+    log, widths = [], []
+
+    def timed(*args):
+        widths.append(int(args[3].shape[0]))  # u: one entry per lane
+        return _timed_call(kernel, log, *args)
+
+    pt._ENGINES["kernel"] = engine._replace(**{field: timed})
+    try:
+        dispatch()
+    finally:
+        pt._ENGINES["kernel"] = engine
+    torch.cuda.synchronize()
+    by_width, launch_ms = {}, [start.elapsed_time(stop) for start, stop in log]
+    for n, ms in zip(widths, launch_ms):
+        entry = by_width.setdefault(n, [0, 0.0])
+        entry[0] += 1
+        entry[1] += ms
+    return dict(sorted(by_width.items(), reverse=True)), launch_ms
+
+
+def _ptxas(log: str) -> dict:
+    """Registers, stack frame and spills of each kernel in nvcc's -Xptxas -v
+    output: {kernel<template args>: {registers, stack, spill_stores,
+    spill_loads}} (bytes)."""
+    kernels, entry, props = {}, None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\w+)", line):
+            props = m.group(1)
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads", line)) and props == entry:
+            kernels.setdefault(entry, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            kernels.setdefault(entry, {})["registers"] = int(m.group(1))
+
+    def readable(mangled: str) -> str:
+        name = re.search(r"[a-z_]+_kernel", mangled).group(0)
+        args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[mangled.index(name) + len(name):])
+        if args is None:
+            return name
+        return name + "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
+
+    return {readable(k): v for k, v in kernels.items()}
 
 
 def _rays(camera, n_camera: int, n_random: int, seed: int, dev):
@@ -238,6 +342,19 @@ def _hold(label: str, names, k_out, p_out, int_names, card: str) -> float:
     return max(errs.values())
 
 
+def _equal(label: str, names, k_out, p_out, card: str) -> float:
+    """A bit-exact kernel's outputs against its plain version's: every
+    output equal on every lane (torch.equal). Returns the largest
+    |kernel - plain|, which is then 0."""
+    import torch
+
+    differ = [name for name, a, b in zip(names, k_out, p_out) if not torch.equal(a, b)]
+    print(f"  {label} == plain on every output {tuple(names)}: {not differ} [{card}]",
+          flush=True)
+    _require(not differ, f"{label}: {differ} differ from the plain version")
+    return 0.0
+
+
 def _timed(fn):
     """(result, seconds) of fn(), fenced by a device sync."""
     import torch
@@ -256,9 +373,17 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
-def _scene_bytes(scene, shade: bool = False) -> int:
-    return _nbytes(*(getattr(scene, name) for name in WALK_TABLES + (SHADE_TABLES if shade
-                                                                      else ())))
+def _scene_bytes(scene, tables) -> int:
+    return _nbytes(*(getattr(scene, name) for name in tables))
+
+
+def _walk_bytes(scene) -> int:
+    """The scene bytes a BVH walk must read, whatever layout a kernel reads
+    them in: the triangles at 36 bytes each, and the nodes in the smaller of
+    the port's two layouts (the SoA planes, or one record per interior node
+    and the root's plane rows). Padding is left out."""
+    records = RECORD_BYTES * ((scene.num_nodes - 1) // 2) + ROOT_ROW_BYTES
+    return _nbytes(scene.tri_positions) + min(_scene_bytes(scene, NODE_PLANES), records)
 
 
 def _bound(ops: int, nbytes: int) -> dict:
@@ -367,12 +492,13 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
     # Times and bounds at the primary population's shape.
     prim = results["primary"]
     o, d, n = prim["o"], prim["d"], prim["o"].shape[0]
-    k6_ms = _time_ms(lambda: intersect_closest_counted(scene, o, d, T_MAX), 10)
+    t_dev = torch.full((n,), T_MAX, device=dev)  # no host copy inside the timing
+    k6_ms = _time_ms(lambda: intersect_closest_counted(scene, o, d, t_dev), 10)
     _, k6_plain = _timed(lambda: intersect_closest_counted_reference(scene, o, d, T_MAX))
     c = prim["counts"].sum(0, dtype=torch.int64).tolist()
     k6_bound = _bound(walk_operations(c[0], c[2]),
                       _nbytes(o, d, prim["t"], prim["tri"], prim["counts"]) + 4 * n
-                      + _scene_bytes(scene))
+                      + _walk_bytes(scene))
     inv, bound = (1.0 / d).contiguous(), prim["bound"]
     args = (box_min, box_max, count, o, inv, bound, diag_iters.GROUP)
     k7_ms = _time_ms(lambda: slab_entry_reduce(*args), 3)
@@ -436,7 +562,8 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
             err = max(err, diff)
             _require(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
                      f"K8 {camera} {mode}: kernel and plain differ beyond rtol 1e-5")
-            times[f"{camera}_{mode}"] = ms = prof_skyround.time_mode(pargs, mode, rounds, 3)
+            times[f"{camera}_{mode}"] = ms = _time_ms(
+                lambda: sky_round(*pargs, rounds, mode), 3)
             print(f"K8 {camera} camera ({hits:.4f} of first rays hit), {mode:9s}: max |kernel - "
                   f"plain| at 4 rounds {diff:.3e}; {ms:.3f} ms at {n} lanes x {rounds} rounds, "
                   f"{ms * 1e6 / (n * rounds):.3f} ns/lane-round [{card}]", flush=True)
@@ -454,7 +581,7 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
                                       prof_skyround.T_MAX)[3].sum(0, dtype=torch.int64)
         nodes, tests = nodes + int(c[0]), tests + int(c[2])
     bound = _bound(walk_operations(nodes, tests) + n * rounds * (SKY_OPS + REGEN_OPS),
-                   _nbytes(*pargs[3:6]) + 4 * n + _scene_bytes(scene))
+                   _nbytes(*pargs[3:6]) + 4 * n + _walk_bytes(scene))
     print(f"K8 full, duck camera, {rounds} rounds: plain {plain_s * 1e3:.1f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]", flush=True)
     entry = _kernel_entry("sky_round", "skyround.cu", "prof/prof_skyround.py:147", launches,
@@ -462,7 +589,294 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
     return entry, numbers
 
 
-def main() -> int:
+def _slice_dispatch(scene, camera, sky, tile, dev):
+    """The slice's lanes in block order ({u, v_tex, noise_base}) and the
+    dispatch of its first 16 samples through the "kernel" engine."""
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.tiling import block_order
+
+    w, h = SLICE["width"], SLICE["height"]
+    ys_np, xs_np, _ = block_order(w, h)
+    ys, xs = torch.from_numpy(ys_np).to(dev), torch.from_numpy(xs_np).to(dev)
+    lanes = dict(u=(xs.float() + 0.5) / float(w), v_tex=(ys.float() + 0.5) / float(h),
+                 noise_base=tile[(ys % 128).long(), (xs % 128).long()].contiguous())
+    disp = pt._Dispatch(
+        scene=scene, sky=sky, camera=camera, kernels=pt._ENGINES["kernel"],
+        inv_dims=(float(np.float32(1) / np.float32(w)), float(np.float32(1) / np.float32(h))),
+        frame_base=0, spp=SLICE["spp"], nf=SLICE["num_frames"], num_bounces=SLICE["num_bounces"],
+        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
+        solar=torch.as_tensor(sky.solar_radiances, device=dev),
+    )
+    return lanes, disp
+
+
+def _k3_args(scene, camera, sky, tile, dev) -> tuple:
+    """K3's arguments at phase 6's shape: all 262,144 lanes after one kernel
+    call and one shade step (NEE pending, scatter continuations and fresh
+    primaries mixed). Also returns the lanes' flags."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    n = lanes["u"].shape[0]
+    sample = torch.zeros(n, dtype=torch.int32, device=dev)
+    o0, d0 = disp.primary(lanes, sample)
+    z3 = torch.zeros(n, 3, device=dev)
+    pix = disp.pixel_args(lanes)
+    out = trace_regen(
+        *pix, T_MAX, sample, torch.ones_like(sample), torch.zeros_like(sample), o0, d0,
+        torch.ones(n, 3, device=dev), z3, z3, torch.full((n, 3), 1e30, device=dev),
+        torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3).contiguous(), z3,
+    )
+    sample1, bounce1, org1, dir1, thr1, srad1, lrad1, _t1, tri1 = out
+    flag2, org2, dir2, thr2, bounce2, sho2, shd2, con2 = disp.shade(
+        lanes["noise_base"], sample1, org1, dir1, tri1, thr1, bounce1)
+    return (*pix, T_MAX, sample1, bounce2, flag2, org2, dir2, thr2, srad1, lrad1, sho2, shd2,
+            con2), flag2
+
+
+def _k5_args(scene, camera, sky, tile, dev) -> tuple:
+    """K5's arguments (K = 2) at phase 6's shape: all 262,144 lanes after
+    one iteration of the segs route. Also returns the slots' flags."""
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    n = lanes["u"].shape[0]
+    st = pt._initial_slots(disp, lanes, n, 2, dev)
+    lrad1, flags = disp.segs_step(st, lanes, torch.zeros(n, 3, device=dev))
+    return (*disp.pixel_args(lanes), T_MAX, st["salloc"], lrad1, st["cnt"], st["ray"],
+            st["thr"], st["nee"]), flags
+
+
+def _k4_args(scene, camera, sky, tile, dev) -> tuple:
+    """K4's arguments at phase 6's shape: the compacted lanes of the
+    in-kernel route's first shaded phase, with that phase's per-tile floor.
+    Also returns the phase's lane count and floor, and the initial state."""
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    n = lanes["u"].shape[0]
+    sizes = pt._phase_sizes(n, pt._COMPACT_FLOOR)
+    st = pt._initial_state(disp, lanes, n, dev)
+    _, _, lrad0 = pt._split_phase0(disp, st, lanes, torch.zeros(n, 3, device=dev), sizes[1])
+    floor = pt._tile_floor(sizes[1], sizes[2])
+    args = (*disp.pixel_args(lanes), disp.num_bounces, floor, T_MAX, st["sample"], st["bounce"],
+            st["flag"], st["origin"], st["direction"], st["thr"], st["srad"], lrad0,
+            st["shadow_o"], st["shadow_d"], st["contrib"])
+    return args, sizes[1], floor, st
+
+
+def _dispatch_kernel_times(scene, sky, camera, tile, dev, card: str) -> dict:
+    """One instrumented dispatch of samples 16-31 per route, after a warm-up
+    dispatch of samples 0-15: K3 on the split route and K5 on the segs=2
+    route, each launch's device time grouped by its lane count, and in
+    launch order (_kernel_times_by_width)."""
+    import torch
+
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+
+    w, h, nf = SLICE["width"], SLICE["height"], SLICE["num_frames"]
+    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
+              num_frames=nf, engine="kernel")
+    zeros = torch.zeros(w * h, 3, device=dev)
+    times = {}
+    for name, field, route in (("split", "split", {}), ("segs2", "segs", dict(segs=2))):
+        warm = accumulate_samples_regen(scene, sky, camera, tile, 0, zeros, **route, **kw)
+        by_width, launch_ms = _kernel_times_by_width(field, lambda: accumulate_samples_regen(
+            scene, sky, camera, tile, nf, warm, **route, **kw))
+        times[name] = by_width
+        times[f"{name}_launch_ms"] = launch_ms
+        print(f"{'K3' if field == 'split' else 'K5'} per dispatch on the {name} route: "
+              f"{sum(launch_ms):.3f} ms over {len(launch_ms)} launches; by lane count [launches, "
+              f"ms] {json.dumps(by_width)}; first launch {launch_ms[0]:.4f} ms, the five longest "
+              f"{[round(ms, 4) for ms in sorted(launch_ms)[-5:]]} [{card}]", flush=True)
+    return times
+
+
+def _sass(library) -> dict:
+    """{kernel: (SASS instructions, digest of the code)} of the built
+    library, from cuobjdump -sass (empty where cuobjdump is missing), with
+    addresses and encodings stripped: equal digests mean equal code."""
+    import hashlib
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return {}
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                         timeout=300).stdout
+    code = {}
+    for part in out.split("Function : ")[1:]:
+        name = re.search(r"[a-z_]+_kernel(?:I(?:L[a-z]\d+E)+E)?", part.split("\n", 1)[0])
+        lines = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in part.splitlines()[1:]]
+        lines = [line for line in lines if line and not line.startswith(".")]
+        if name:
+            key = re.sub(r"I((?:L[a-z]\d+E)+)E", lambda m: "<" + ",".join(
+                re.findall(r"L[a-z](\d+)E", m.group(1))) + ">", name.group(0))
+            code[key] = (len(lines), hashlib.sha256("\n".join(lines).encode()).hexdigest()[:12])
+    return code
+
+
+def _build_report() -> dict:
+    """Build the kernels and print the build time and each kernel's
+    registers, stack frame, spills and SASS digest."""
+    from rayfinder_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}", flush=True)
+    regs = _ptxas(_build.build_log_path().read_text())
+    for name, (count, digest) in _sass(_build.library_path()).items():
+        regs.setdefault(name, {}).update(sass_instructions=count, sass_digest=digest)
+    for name, r in regs.items():
+        print(f"  ptxas {name}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+              f"frame, spill stores {r.get('spill_stores')} loads {r.get('spill_loads')} bytes; "
+              f"SASS {r.get('sass_instructions')} instructions, digest {r.get('sass_digest')}")
+    return regs
+
+
+def _ray_queries(scene26, camera, dev, card: str) -> list:
+    """Phase 2 on the big courtyard: K1 and K2 through their wrappers on
+    262,144 camera and random rays (launch counts read just after), held to
+    the plain walks; K6 == K1 on the same rays; times and bounds. Returns
+    the K1 and K2 kernel entries."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import intersect_closest_counted, walk_operations
+    from rayfinder_tpu_torch.ops.walk import (
+        intersect_any_kernel, intersect_any_reference,
+        intersect_closest_kernel, intersect_closest_reference,
+    )
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.traverse import count_work
+
+    o, d = _rays(camera, 131072, 131072, seed=0, dev=dev)
+    intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
+    walk = _check_walks(scene26, o, d, "courtyard26 camera+random")
+    launches = intersect_closest_kernel.launches, intersect_any_kernel.launches
+    print(f"  hit fraction {float((walk['tri'] >= 0).float().mean()):.4f}, "
+          f"occluded fraction {float(walk['occ'].float().mean()):.4f}")
+    # K1's work is K6's count on the same rays (K6 == K1 on t, tri, nodes);
+    # K2's is the plain any-hit walk's count.
+    _, t6, tri6, counts6 = intersect_closest_counted(scene26, o, d, T_MAX)
+    _require(torch.equal(t6, walk["t"]) and torch.equal(tri6, walk["tri"])
+             and torch.equal(counts6[:, 0], walk["visits"]), "K6 differs from K1")
+    c = counts6.sum(0, dtype=torch.int64).tolist()
+    n_rays = o.shape[0]
+    ray_bytes = _nbytes(o, d) + 4 * n_rays + _walk_bytes(scene26)
+    k1_bound = _bound(walk_operations(c[0], c[2]), ray_bytes + 12 * n_rays)
+    with count_work() as work:
+        intersect_any_reference(scene26, o, d, T_MAX)
+    k2_bound = _bound(_walk_ops(work), ray_bytes + n_rays)
+    # Timed with t_max already on the card: given a float, the wrappers copy
+    # it from the host, which waits for the stream and puts a host gap
+    # inside each event pair.
+    t_dev = torch.full((n_rays,), T_MAX, device=dev)
+    k1_ms = _time_ms(lambda: intersect_closest_kernel(scene26, o, d, t_dev), 20)
+    k1_plain = _time_ms(lambda: intersect_closest_reference(scene26, o, d, T_MAX), 2)
+    k2_ms = _time_ms(lambda: intersect_any_kernel(scene26, o, d, t_dev), 20)
+    k2_plain = _time_ms(lambda: intersect_any_reference(scene26, o, d, T_MAX), 2)
+    print(f"K1 closest: {k1_ms:.4f} ms (plain {k1_plain:.1f} ms, bound "
+          f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}); K2 any: {k2_ms:.4f} ms "
+          f"(plain {k2_plain:.1f} ms, bound {k2_bound['bound_ms']:.4f} ms, "
+          f"{k2_bound['bound_by']}) at {n_rays} rays; K6 == K1 on them; nodes/ray "
+          f"{c[0] / n_rays:.2f}, triangle tests/ray {c[2] / n_rays:.2f} [{card}]", flush=True)
+    walk_path = "phase 2 ray queries"
+    return [
+        _kernel_entry("intersect_closest", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2034",
+                      launches[0], walk["t_err"], k1_ms, k1_plain, k1_bound, walk_path),
+        _kernel_entry("intersect_any", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2051",
+                      launches[1], walk["occ_err"], k2_ms, k2_plain, k2_bound, walk_path),
+    ]
+
+
+def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) -> list:
+    """Phase 6: each path kernel against its plain version at the slice's
+    shapes, with the walks' work of each call; K3 and K5 equal theirs on
+    every output. Returns the K3, K4 and K5 kernel entries; `launches` holds
+    each one's launches on the run that drives it."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs, trace_regen_segs_reference
+    from rayfinder_tpu_torch.ops.regen_shaded import (
+        trace_regen_shaded, trace_regen_shaded_reference,
+    )
+
+    n, nf = SLICE["width"] * SLICE["height"], SLICE["num_frames"]
+    regen = "rayfinder_tpu/ops/pallas_regen.py"
+
+    # K3: all lanes after one kernel call and one shade step.
+    args, flag2 = _k3_args(scene26, camera, sky, tile, dev)
+    k_out = trace_regen(*args)
+    p_out, k3_plain, work = _plain_work(lambda: trace_regen_reference(*args))
+    k3_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26))
+    k3_ms = _time_ms(lambda: trace_regen(*args), 10)
+    print(f"K3 trace_regen: {k3_ms:.4f} ms (plain {k3_plain * 1e3:.1f} ms, bound "
+          f"{k3_bound['bound_ms']:.4f} ms, {k3_bound['bound_by']}) at {n} lanes; flags "
+          f"{torch.bincount(flag2, minlength=3).tolist()}; walks [rays, nodes, leaves, tests] "
+          f"{work} [{card}]", flush=True)
+    k3_err = _equal("K3", ("sample", "bounce", "origin", "direction", "thr", "srad", "lrad",
+                           "t", "tri"), k_out, p_out, card)
+
+    # K4: the compacted lanes of the in-kernel route's first shaded phase,
+    # with that phase's per-tile floor.
+    args, k4_lanes, floor, st = _k4_args(scene26, camera, sky, tile, dev)
+    k_out = trace_regen_shaded(*args)
+    p_out, k4_plain, work = _plain_work(lambda: trace_regen_shaded_reference(*args))
+    k4_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26)
+                      + _scene_bytes(scene26, SHADE_TABLES))
+    k4_ms = _time_ms(lambda: trace_regen_shaded(*args), 5)
+    live_after = int((k_out[0] < nf).sum())
+    print(f"K4 trace_regen_shaded: {k4_ms:.4f} ms (plain {k4_plain * 1e3:.1f} ms, bound "
+          f"{k4_bound['bound_ms']:.4f} ms, {k4_bound['bound_by']}) at {k4_lanes} lanes, "
+          f"per-tile floor {floor}: live {int((st['sample'] < nf).sum())} -> {live_after}; "
+          f"walks {work} [{card}]", flush=True)
+    k4_err = _hold("K4", ("sample", "bounce", "flag", "origin", "direction", "thr", "srad",
+                          "lrad", "shadow_o", "shadow_d", "contrib"), k_out, p_out,
+                   ("sample", "bounce", "flag"), card)
+
+    # K5 (K = 2): all lanes after one iteration of the segs route.
+    args, flags = _k5_args(scene26, camera, sky, tile, dev)
+    k_out = trace_regen_segs(*args)
+    p_out, k5_plain, work = _plain_work(lambda: trace_regen_segs_reference(*args))
+    k5_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26))
+    k5_ms = _time_ms(lambda: trace_regen_segs(*args), 10)
+    print(f"K5 trace_regen_segs: {k5_ms:.4f} ms (plain {k5_plain * 1e3:.1f} ms, bound "
+          f"{k5_bound['bound_ms']:.4f} ms, {k5_bound['bound_by']}) at {n} lanes x 2 slots; "
+          f"slot flags {torch.bincount(flags, minlength=3).tolist()}; walks {work} [{card}]",
+          flush=True)
+    k5_err = _equal("K5", ("salloc", "lrad", "ocnt", "oray", "othr", "t"), k_out, p_out, card)
+
+    return [
+        _kernel_entry("trace_regen", "regen.cu", f"{regen}:1211", launches.get("K3", 0), k3_err,
+                      k3_ms, k3_plain * 1e3, k3_bound, "phase 4 slice, split route"),
+        _kernel_entry("trace_regen_shaded", "regen_shaded.cu", f"{regen}:1715",
+                      launches.get("K4", 0), k4_err, k4_ms, k4_plain * 1e3, k4_bound,
+                      "phase 5 slice, in-kernel route"),
+        _kernel_entry("trace_regen_segs", "regen_segs.cu", f"{regen}:1393",
+                      launches.get("K5", 0), k5_err, k5_ms, k5_plain * 1e3, k5_bound,
+                      "phase 5 slice, segs=2 route"),
+    ]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="phases 1, 2, 5's instrumented dispatches, 6 and 8 only")
+    args = ap.parse_args(argv)
+    full = not args.kernel_times
+
     import torch
 
     if not torch.cuda.is_available():
@@ -473,27 +887,13 @@ def main() -> int:
 
     import numpy as np
 
-    from rayfinder_tpu_torch.ops import _build
-    from rayfinder_tpu_torch.ops.counted import intersect_closest_counted, walk_operations
-    from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
-    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs, trace_regen_segs_reference
-    from rayfinder_tpu_torch.ops.regen_shaded import (
-        trace_regen_shaded, trace_regen_shaded_reference,
-    )
-    from rayfinder_tpu_torch.ops.walk import (
-        intersect_any_kernel, intersect_any_reference,
-        intersect_closest_kernel, intersect_closest_reference,
-    )
-    from rayfinder_tpu_torch.render import pathtracer as pt
-    from rayfinder_tpu_torch.render.camera import create_camera, primary_ray
-    from rayfinder_tpu_torch.render.intersect import T_MAX
-    from rayfinder_tpu_torch.render.pathtracer import (
-        _nee_and_continuation, accumulate_samples_regen,
-    )
-    from rayfinder_tpu_torch.render.rng import blue_noise_tile, noise_of
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
     from rayfinder_tpu_torch.render.scene import build_device_scene
-    from rayfinder_tpu_torch.render.tiling import block_order
-    from rayfinder_tpu_torch.render.traverse import count_work
     from rayfinder_tpu_torch.scene.procedural import courtyard_scene
     from rayfinder_tpu_torch.sky.model import sky_state_from_ui
 
@@ -502,293 +902,175 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # --- 1. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}", flush=True)
-    for line in _build.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()[:120]}")
+    ptxas = _build_report()
 
     sky = sky_state_from_ui(*SKY)
     tile = torch.from_numpy(blue_noise_tile()).to(dev)
 
     # --- 2. K1/K2: goldens and 262,144 rays over the big courtyard -----------
-    flat8, tex8 = courtyard_scene(8, textured=False)
-    scene8 = build_device_scene(flat8, textures=tex8, device=dev)
-    for name, need in (("grouped_courtyard8", 256), ("flat_courtyard8", 255)):
-        g = np.load(GOLDENS / f"{name}.npz")
-        o = torch.from_numpy(g["origins"]).to(dev)
-        d = torch.from_numpy(g["directions"]).to(dev)
-        r = _check_walks(scene8, o, d, name)
-        agree = (
-            (r["t"].cpu().numpy() == g["t"]) & (r["tri"].cpu().numpy() == g["tri"])
-            & (r["occ"].cpu().numpy() == g["occ"].astype(bool))
-        )
-        print(f"golden {name}: {int(agree.sum())}/{agree.size} rays agree; differ: "
-              f"{np.nonzero(~agree)[0].tolist()}", flush=True)
-        _require(int(agree.sum()) >= need, f"{name}: fewer than {need} rays agree")
+    if full:
+        flat8, tex8 = courtyard_scene(8, textured=False)
+        scene8 = build_device_scene(flat8, textures=tex8, device=dev)
+        for name, need in (("grouped_courtyard8", 256), ("flat_courtyard8", 255)):
+            g = np.load(GOLDENS / f"{name}.npz")
+            o = torch.from_numpy(g["origins"]).to(dev)
+            d = torch.from_numpy(g["directions"]).to(dev)
+            r = _check_walks(scene8, o, d, name)
+            agree = (
+                (r["t"].cpu().numpy() == g["t"]) & (r["tri"].cpu().numpy() == g["tri"])
+                & (r["occ"].cpu().numpy() == g["occ"].astype(bool))
+            )
+            print(f"golden {name}: {int(agree.sum())}/{agree.size} rays agree; differ: "
+                  f"{np.nonzero(~agree)[0].tolist()}", flush=True)
+            _require(int(agree.sum()) >= need, f"{name}: fewer than {need} rays agree")
 
     t0 = time.perf_counter()
     flat26, tex26 = courtyard_scene(26, textured=False)
     scene26 = build_device_scene(flat26, textures=tex26, device=dev)
     print(f"courtyard_scene(26): {scene26.num_triangles} triangles, {scene26.num_nodes} "
-          f"nodes, built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"nodes, built in {time.perf_counter() - t0:.1f} s; SoA node planes "
+          f"{_scene_bytes(scene26, NODE_PLANES)} bytes, tri_positions "
+          f"{_nbytes(scene26.tri_positions)} bytes; a walk must read {_walk_bytes(scene26)} "
+          f"bytes", flush=True)
+    if full:
+        print(f"  packed walk tables: bvh_nodes2 {tuple(scene26.bvh_nodes2.shape)} "
+              f"{_nbytes(scene26.bvh_nodes2)} bytes, tri_pos4 {tuple(scene26.tri_pos4.shape)} "
+              f"{_nbytes(scene26.tri_pos4)} bytes", flush=True)
     camera = create_camera(*CAMERA, SLICE["width"] / SLICE["height"])
-    o, d = _rays(camera, 131072, 131072, seed=0, dev=dev)
-    # The ray queries: K1 and K2 through their wrappers, counts read just
-    # after (then held to the plain walks).
-    intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
-    walk = _check_walks(scene26, o, d, "courtyard26 camera+random")
-    k1_launches, k2_launches = intersect_closest_kernel.launches, intersect_any_kernel.launches
-    print(f"  hit fraction {float((walk['tri'] >= 0).float().mean()):.4f}, "
-          f"occluded fraction {float(walk['occ'].float().mean()):.4f}")
-    # K1's work is K6's count on the same rays (K6 == K1 on t, tri, nodes);
-    # K2's is the plain any-hit walk's count.
-    _, t6, tri6, counts6 = intersect_closest_counted(scene26, o, d, T_MAX)
-    _require(torch.equal(t6, walk["t"]) and torch.equal(tri6, walk["tri"])
-             and torch.equal(counts6[:, 0], walk["visits"]), "K6 differs from K1")
-    c = counts6.sum(0, dtype=torch.int64).tolist()
-    n_rays = o.shape[0]
-    ray_bytes = _nbytes(o, d) + 4 * n_rays + _scene_bytes(scene26)
-    k1_bound = _bound(walk_operations(c[0], c[2]), ray_bytes + 12 * n_rays)
-    with count_work() as work:
-        intersect_any_reference(scene26, o, d, T_MAX)
-    k2_bound = _bound(_walk_ops(work), ray_bytes + n_rays)
-    k1_ms = _time_ms(lambda: intersect_closest_kernel(scene26, o, d, T_MAX), 20)
-    k1_plain = _time_ms(lambda: intersect_closest_reference(scene26, o, d, T_MAX), 2)
-    k2_ms = _time_ms(lambda: intersect_any_kernel(scene26, o, d, T_MAX), 20)
-    k2_plain = _time_ms(lambda: intersect_any_reference(scene26, o, d, T_MAX), 2)
-    print(f"K1 closest: {k1_ms:.3f} ms (plain {k1_plain:.1f} ms, bound "
-          f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}); K2 any: {k2_ms:.3f} ms "
-          f"(plain {k2_plain:.1f} ms, bound {k2_bound['bound_ms']:.4f} ms, "
-          f"{k2_bound['bound_by']}) at {n_rays} rays; K6 == K1 on them; nodes/ray "
-          f"{c[0] / n_rays:.2f}, triangle tests/ray {c[2] / n_rays:.2f} [{card}]", flush=True)
+    walk_entries = _ray_queries(scene26, camera, dev, card)
 
-    # --- 3. small render: kernels vs plain vs the JAX-baked golden ----------
-    # The split route through the kernels and the plain versions, and the
-    # in-kernel (K4) and segs (K5) routes through their kernels.
-    _render_routes(scene8, sky, tile, dev, "render", np.load(
-        GOLDENS / "courtyard_untextured_128x96_8spp.npz"), {
-            "kernel": dict(engine="kernel", count_rays=True),
-            "plain": dict(engine="plain", count_rays=True),
-            "inkernel": dict(engine="kernel", inkernel=True),
-            "segs2": dict(engine="kernel", segs=2, count_rays=True),
-        })
-
-    # --- 3b. the textured courtyard, built without Pillow -------------------
-    flat8t, tex8t = courtyard_scene(8, textured=True)
-    scene8t = build_device_scene(flat8t, textures=tex8t, device=dev)
-    _render_routes(scene8t, sky, tile, dev, "textured render", np.load(
-        GOLDENS / "courtyard_textured_128x96_8spp.npz"), {
-            "kernel": dict(engine="kernel", count_rays=True),
-            "inkernel": dict(engine="kernel", inkernel=True),
-            "segs2": dict(engine="kernel", segs=2, count_rays=True),
-            "inkernel plain": dict(engine="plain", inkernel=True),
-        })
-
-    # --- 4. the slice: courtyard_scene(26), 512x512, 4 bounces --------------
     w, h = SLICE["width"], SLICE["height"]
     nf16 = SLICE["num_frames"]
-    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
-              num_frames=nf16, engine="kernel")
-    zeros = torch.zeros(w * h, 3, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    trace_regen.launches = 0
-    intersect_closest_kernel.launches = 0
-    intersect_any_kernel.launches = 0
-    t0 = time.perf_counter()
-    accum_w, _ = accumulate_samples_regen(scene26, sky, camera, tile, 0, zeros,
-                                          count_rays=True, **kw)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    accum, rays = accumulate_samples_regen(scene26, sky, camera, tile, nf16, accum_w,
-                                           count_rays=True, **kw)
-    total = float(accum.sum())  # fences the dispatch
-    dt = time.perf_counter() - t0
-    k3_launches = trace_regen.launches
-    closest, shadow = (int(x) for x in rays.cpu())
-    mrays = (closest + shadow) / dt / 1e6
-    peak = torch.cuda.max_memory_allocated()
-    print(f"slice courtyard26 512x512 4 bounces, 16 samples timed: {mrays:.3f} Mrays/s, "
-          f"{dt:.3f} s (warm-up dispatch {warm_s:.3f} s), rays closest={closest} "
-          f"shadow={shadow}, peak memory {peak / 2**20:.1f} MiB, K3 launches "
-          f"{k3_launches} (2 dispatches) [{card}]", flush=True)
-    _require(k3_launches > 0, "the slice did not launch the path kernel")
-    _require(bool(torch.isfinite(accum).all()) and total > 0.0,
-             "the slice's radiance is not finite and non-zero")
+    launches, slice_numbers = {}, {}
+    if full:
+        # --- 3. small render: kernels vs plain vs the JAX-baked golden ------
+        # The split route through the kernels and the plain versions, and
+        # the in-kernel (K4) and segs (K5) routes through their kernels.
+        _render_routes(scene8, sky, tile, dev, "render", np.load(
+            GOLDENS / "courtyard_untextured_128x96_8spp.npz"), {
+                "kernel": dict(engine="kernel", count_rays=True),
+                "plain": dict(engine="plain", count_rays=True),
+                "inkernel": dict(engine="kernel", inkernel=True),
+                "segs2": dict(engine="kernel", segs=2, count_rays=True),
+            })
 
-    # --- 5. the in-kernel (K4) and segs (K5) routes at full width -----------
-    # Each route: a warm-up dispatch of samples 0-15, then the timed
-    # dispatch of samples 16-31 from phase 4's starting accumulation. The
-    # in-kernel route ends whole paths inside K4 and cannot count rays: its
-    # Mrays/s uses phase 4's exact counts, which are those of the same
-    # samples. "inkernel_one_call" is the in-kernel route with a compaction
-    # floor of the whole batch: no split phase, one K4 call per dispatch.
-    routes = {"inkernel": (dict(inkernel=True), trace_regen_shaded),
-              "segs2": (dict(segs=2, count_rays=True), trace_regen_segs),
-              "inkernel_one_call": (dict(inkernel=True, compact_floor=w * h),
-                                    trace_regen_shaded)}
-    route_launches, route_rates = {}, {"split": mrays}
-    for name, (route_kw, kernel) in routes.items():
-        kernel.launches = 0
-        _timed(lambda: accumulate_samples_regen(scene26, sky, camera, tile, 0, zeros,
-                                                **route_kw, **kw))
-        out, secs = _timed(lambda: accumulate_samples_regen(
-            scene26, sky, camera, tile, nf16, accum_w, **route_kw, **kw))
-        route_launches[name] = kernel.launches
-        r_accum, r_rays = out if isinstance(out, tuple) else (out, None)
-        route_rates[name] = (closest + shadow) / secs / 1e6
-        counted = ("rays " + str(r_rays.tolist())) if r_rays is not None else (
-            "rays not counted: the rate uses phase 4's counts of the same samples")
-        err = float((r_accum - accum).abs().max())
-        print(f"slice via {name}: {route_rates[name]:.3f} Mrays/s (split {mrays:.3f}), "
-              f"{secs:.3f} s, {counted}, {kernel.__name__} launches {kernel.launches} "
-              f"(2 dispatches), max |accum - split| {err:.3e} [{card}]", flush=True)
-        _require(kernel.launches > 0, f"the {name} route did not launch {kernel.__name__}")
-        _require(bool(torch.allclose(r_accum, accum, rtol=1e-4, atol=2e-3)),
-                 f"{name}: the accumulation differs from the split route's")
-        if r_rays is not None:
-            _require(r_rays.tolist() == [closest, shadow],
-                     f"{name}: ray counts differ from the split route's")
+        # --- 3b. the textured courtyard, built without Pillow ---------------
+        flat8t, tex8t = courtyard_scene(8, textured=True)
+        scene8t = build_device_scene(flat8t, textures=tex8t, device=dev)
+        _render_routes(scene8t, sky, tile, dev, "textured render", np.load(
+            GOLDENS / "courtyard_textured_128x96_8spp.npz"), {
+                "kernel": dict(engine="kernel", count_rays=True),
+                "inkernel": dict(engine="kernel", inkernel=True),
+                "segs2": dict(engine="kernel", segs=2, count_rays=True),
+                "inkernel plain": dict(engine="plain", inkernel=True),
+            })
 
-    # Host time is noisy: three more timed dispatches of each route, in turns.
-    repeats = {name: [] for name in ("split", *routes)}
-    route_kws = {"split": dict(count_rays=True), **{k: v[0] for k, v in routes.items()}}
-    for _ in range(3):
-        for name, route_kw in route_kws.items():
-            _, secs = _timed(lambda: accumulate_samples_regen(
+        # --- 4. the slice: courtyard_scene(26), 512x512, 4 bounces ----------
+        kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
+                  num_frames=nf16, engine="kernel")
+        zeros = torch.zeros(w * h, 3, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trace_regen.launches = 0
+        t0 = time.perf_counter()
+        accum_w, _ = accumulate_samples_regen(scene26, sky, camera, tile, 0, zeros,
+                                              count_rays=True, **kw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        accum, rays = accumulate_samples_regen(scene26, sky, camera, tile, nf16, accum_w,
+                                               count_rays=True, **kw)
+        total = float(accum.sum())  # fences the dispatch
+        dt = time.perf_counter() - t0
+        launches["K3"] = trace_regen.launches
+        closest, shadow = (int(x) for x in rays.cpu())
+        mrays = (closest + shadow) / dt / 1e6
+        peak = torch.cuda.max_memory_allocated()
+        print(f"slice courtyard26 512x512 4 bounces, 16 samples timed: {mrays:.3f} Mrays/s, "
+              f"{dt:.3f} s (warm-up dispatch {warm_s:.3f} s), rays closest={closest} "
+              f"shadow={shadow}, peak memory {peak / 2**20:.1f} MiB, K3 launches "
+              f"{launches['K3']} (2 dispatches) [{card}]", flush=True)
+        _require(launches["K3"] > 0, "the slice did not launch the path kernel")
+        _require(bool(torch.isfinite(accum).all()) and total > 0.0,
+                 "the slice's radiance is not finite and non-zero")
+
+        # --- 5. the in-kernel (K4) and segs (K5) routes at full width -------
+        # Each route: a warm-up dispatch of samples 0-15, then the timed
+        # dispatch of samples 16-31 from phase 4's starting accumulation.
+        # The in-kernel route ends whole paths inside K4 and cannot count
+        # rays: its Mrays/s uses phase 4's exact counts, which are those of
+        # the same samples. "inkernel_one_call" is the in-kernel route with
+        # a compaction floor of the whole batch: no split phase, one K4 call
+        # per dispatch.
+        routes = {"inkernel": (dict(inkernel=True), trace_regen_shaded),
+                  "segs2": (dict(segs=2, count_rays=True), trace_regen_segs),
+                  "inkernel_one_call": (dict(inkernel=True, compact_floor=w * h),
+                                        trace_regen_shaded)}
+        route_launches, route_rates = {}, {"split": mrays}
+        for name, (route_kw, kernel) in routes.items():
+            kernel.launches = 0
+            _timed(lambda: accumulate_samples_regen(scene26, sky, camera, tile, 0, zeros,
+                                                    **route_kw, **kw))
+            out, secs = _timed(lambda: accumulate_samples_regen(
                 scene26, sky, camera, tile, nf16, accum_w, **route_kw, **kw))
-            repeats[name].append((closest + shadow) / secs / 1e6)
-    print("slice routes, Mrays/s over three dispatches in turns: "
-          + "; ".join(f"{k} {', '.join(f'{x:.3f}' for x in v)}" for k, v in repeats.items())
-          + f" [{card}]", flush=True)
+            route_launches[name] = kernel.launches
+            r_accum, r_rays = out if isinstance(out, tuple) else (out, None)
+            route_rates[name] = (closest + shadow) / secs / 1e6
+            counted = ("rays " + str(r_rays.tolist())) if r_rays is not None else (
+                "rays not counted: the rate uses phase 4's counts of the same samples")
+            err = float((r_accum - accum).abs().max())
+            print(f"slice via {name}: {route_rates[name]:.3f} Mrays/s (split {mrays:.3f}), "
+                  f"{secs:.3f} s, {counted}, {kernel.__name__} launches {kernel.launches} "
+                  f"(2 dispatches), max |accum - split| {err:.3e} [{card}]", flush=True)
+            _require(kernel.launches > 0, f"the {name} route did not launch {kernel.__name__}")
+            _require(bool(torch.allclose(r_accum, accum, rtol=1e-4, atol=2e-3)),
+                     f"{name}: the accumulation differs from the split route's")
+            if r_rays is not None:
+                _require(r_rays.tolist() == [closest, shadow],
+                         f"{name}: ray counts differ from the split route's")
+        launches["K4"], launches["K5"] = route_launches["inkernel"], route_launches["segs2"]
+
+        # Host time is noisy: three more timed dispatches of each route, in
+        # turns.
+        repeats = {name: [] for name in ("split", *routes)}
+        route_kws = {"split": dict(count_rays=True), **{k: v[0] for k, v in routes.items()}}
+        for _ in range(3):
+            for name, route_kw in route_kws.items():
+                _, secs = _timed(lambda: accumulate_samples_regen(
+                    scene26, sky, camera, tile, nf16, accum_w, **route_kw, **kw))
+                repeats[name].append((closest + shadow) / secs / 1e6)
+        print("slice routes, Mrays/s over three dispatches in turns: "
+              + "; ".join(f"{k} {', '.join(f'{x:.3f}' for x in v)}" for k, v in repeats.items())
+              + f" [{card}]", flush=True)
+        slice_numbers = {"mrays_per_s": route_rates, "repeats": repeats, "seconds": dt,
+                         "closest": closest, "shadow": shadow, "peak_bytes": peak, "card": card}
+
+    # K3 and K5 per dispatch: one instrumented dispatch per route.
+    by_width = _dispatch_kernel_times(scene26, sky, camera, tile, dev, card)
 
     # --- 6. each path kernel against its plain version at slice shapes ------
-    ys_np, xs_np, _ = block_order(w, h)
-    ys = torch.from_numpy(ys_np).to(dev)
-    xs = torch.from_numpy(xs_np).to(dev)
-    u = (xs.float() + 0.5) / float(w)
-    v_tex = (ys.float() + 0.5) / float(h)
-    nbase = tile[(ys % 128).long(), (xs % 128).long()].contiguous()
-    inv_dims = (float(np.float32(1) / np.float32(w)), float(np.float32(1) / np.float32(h)))
-    nf, spp, nb = nf16, SLICE["spp"], SLICE["num_bounces"]
-    n = w * h
-
-    # K3: the lane state after one kernel call and one shade step (NEE
-    # pending, scatter continuations and fresh primaries mixed).
-    sample = torch.zeros(n, dtype=torch.int32, device=dev)
-    o0, d0 = primary_ray(camera, u, v_tex, noise_of(nbase, 0, sample, spp), inv_dims)
-    z3 = torch.zeros(n, 3, device=dev)
-    out = trace_regen(
-        scene26, camera, sky, u, v_tex, nbase, inv_dims, 0, spp, nf, T_MAX,
-        sample, torch.ones_like(sample), torch.zeros_like(sample), o0, d0,
-        torch.ones(n, 3, device=dev), z3, z3, torch.full((n, 3), 1e30, device=dev),
-        torch.tensor([1.0, 0.0, 0.0], device=dev).expand(n, 3).contiguous(), z3,
-    )
-    sample1, bounce1, org1, dir1, thr1, srad1, lrad1, _t1, tri1 = out
-    noise1 = noise_of(nbase, 0, sample1, spp)
-    flag2, org2, dir2, thr2, bounce2, sho2, shd2, con2 = _nee_and_continuation(
-        scene26, noise1, org1, dir1, tri1, thr1, bounce1, sample1 < nf,
-        torch.as_tensor(sky.sun_direction, device=dev),
-        torch.as_tensor(sky.solar_radiances, device=dev), nb,
-    )
-    args = (scene26, camera, sky, u, v_tex, nbase, inv_dims, 0, spp, nf, T_MAX,
-            sample1, bounce2, flag2, org2, dir2, thr2, srad1, lrad1, sho2, shd2, con2)
-    k_out = trace_regen(*args)
-    p_out, k3_plain, work = _plain_work(lambda: trace_regen_reference(*args))
-    k3_plain *= 1e3
-    k3_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _scene_bytes(scene26))
-    k3_ms = _time_ms(lambda: trace_regen(*args), 5)
-    print(f"K3 trace_regen: {k3_ms:.3f} ms (plain {k3_plain:.1f} ms, bound "
-          f"{k3_bound['bound_ms']:.4f} ms, {k3_bound['bound_by']}) at {n} lanes; flags "
-          f"{torch.bincount(flag2, minlength=3).tolist()}; walks [rays, nodes, leaves, tests] "
-          f"{work} [{card}]", flush=True)
-    k3_err = _hold("K3", ("sample", "bounce", "origin", "direction", "thr", "srad", "lrad",
-                          "t", "tri"), k_out, p_out, ("sample", "bounce", "tri"), card)
-
-    # K4: the compacted lanes of the in-kernel route's first shaded phase,
-    # with that phase's per-tile floor.
-    disp = pt._Dispatch(
-        scene=scene26, sky=sky, camera=camera, kernels=pt._ENGINES["kernel"],
-        inv_dims=inv_dims, frame_base=0, spp=spp, nf=nf, num_bounces=nb,
-        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
-        solar=torch.as_tensor(sky.solar_radiances, device=dev),
-    )
-    sizes = pt._phase_sizes(n, pt._COMPACT_FLOOR)
-    lanes = dict(u=u, v_tex=v_tex, noise_base=nbase)
-    st = pt._initial_state(disp, lanes, n, dev)
-    _, _, lrad0 = pt._split_phase0(disp, st, lanes, zeros, sizes[1])
-    floor = pt._tile_floor(sizes[1], sizes[2])
-    args = (scene26, camera, sky, lanes["u"], lanes["v_tex"], lanes["noise_base"], inv_dims,
-            0, spp, nf, nb, floor, T_MAX, st["sample"], st["bounce"], st["flag"],
-            st["origin"], st["direction"], st["thr"], st["srad"], lrad0, st["shadow_o"],
-            st["shadow_d"], st["contrib"])
-    k_out = trace_regen_shaded(*args)
-    p_out, k4_plain, work = _plain_work(lambda: trace_regen_shaded_reference(*args))
-    k4_plain *= 1e3
-    k4_bound = _bound(_walk_ops(work),
-                      _nbytes(*args, *k_out) + _scene_bytes(scene26, shade=True))
-    k4_ms = _time_ms(lambda: trace_regen_shaded(*args), 5)
-    live_after = int((k_out[0] < nf).sum())
-    print(f"K4 trace_regen_shaded: {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, bound "
-          f"{k4_bound['bound_ms']:.4f} ms, {k4_bound['bound_by']}) at {sizes[1]} lanes, "
-          f"per-tile floor {floor}: live {int((st['sample'] < nf).sum())} -> {live_after}; "
-          f"walks {work} [{card}]", flush=True)
-    k4_err = _hold("K4", ("sample", "bounce", "flag", "origin", "direction", "thr", "srad",
-                          "lrad", "shadow_o", "shadow_d", "contrib"), k_out, p_out,
-                   ("sample", "bounce", "flag"), card)
-
-    # K5 (K = 2): all 262,144 lanes after one iteration of the segs route.
-    lanes = dict(u=u, v_tex=v_tex, noise_base=nbase)
-    st = pt._initial_slots(disp, lanes, n, 2, dev)
-    lrad1, flags = disp.segs_step(st, lanes, zeros)
-    args = (scene26, camera, sky, u, v_tex, nbase, inv_dims, 0, spp, nf, T_MAX,
-            st["salloc"], lrad1, st["cnt"], st["ray"], st["thr"], st["nee"])
-    k_out = trace_regen_segs(*args)
-    p_out, k5_plain, work = _plain_work(lambda: trace_regen_segs_reference(*args))
-    k5_plain *= 1e3
-    k5_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _scene_bytes(scene26))
-    k5_ms = _time_ms(lambda: trace_regen_segs(*args), 5)
-    print(f"K5 trace_regen_segs: {k5_ms:.3f} ms (plain {k5_plain:.1f} ms, bound "
-          f"{k5_bound['bound_ms']:.4f} ms, {k5_bound['bound_by']}) at {n} lanes x 2 slots; "
-          f"slot flags {torch.bincount(flags, minlength=3).tolist()}; walks {work} [{card}]",
-          flush=True)
-    k5_err = _hold("K5", ("salloc", "lrad", "ocnt", "oray", "othr", "t"), k_out, p_out,
-                   ("salloc", "ocnt"), card)
+    path_entries = _path_kernels(scene26, camera, sky, tile, dev, card, launches)
 
     # --- 7. the traversal-efficiency path: K6 and K7 -----------------------
-    eff_entries, efficiency, scene_pt = _efficiency(dev, card)
+    eff_entries, efficiency, scene_pt = _efficiency(dev, card) if full else ([], {}, scene26)
 
     # --- 8. the probes: K7 at the TPU probe's shapes, K8 ---------------------
     k8_entry, probes = _probes(dev, card, scene_pt)
 
-    walk_path = "phase 2 ray queries"
-    regen = "rayfinder_tpu/ops/pallas_regen.py"
-    kernels = [
-        _kernel_entry("intersect_closest", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2034",
-                      k1_launches, walk["t_err"], k1_ms, k1_plain, k1_bound, walk_path),
-        _kernel_entry("intersect_any", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2051",
-                      k2_launches, walk["occ_err"], k2_ms, k2_plain, k2_bound, walk_path),
-        _kernel_entry("trace_regen", "regen.cu", f"{regen}:1211", k3_launches, k3_err, k3_ms,
-                      k3_plain, k3_bound, "phase 4 slice, split route"),
-        _kernel_entry("trace_regen_shaded", "regen_shaded.cu", f"{regen}:1715",
-                      route_launches["inkernel"], k4_err, k4_ms, k4_plain, k4_bound,
-                      "phase 5 slice, in-kernel route"),
-        _kernel_entry("trace_regen_segs", "regen_segs.cu", f"{regen}:1393",
-                      route_launches["segs2"], k5_err, k5_ms, k5_plain, k5_bound,
-                      "phase 5 slice, segs=2 route"),
-        *eff_entries,
-        k8_entry,
-    ]
+    kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry]
     print(card, flush=True)
+    if not full:
+        print(json.dumps({"kernel_times": {"kernels": kernels,
+                                           "path_kernels_per_dispatch": by_width,
+                                           "ptxas": ptxas, "card": card}}), flush=True)
+        return 0
     print(json.dumps({
         "kernels": kernels,
+        "path_kernels_per_dispatch": by_width,
+        "ptxas": ptxas,
         "efficiency": efficiency,
         "probes": probes,
-        "slice": {"mrays_per_s": route_rates, "repeats": repeats, "seconds": dt,
-                  "closest": closest, "shadow": shadow, "peak_bytes": peak, "card": card},
+        "slice": slice_numbers,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

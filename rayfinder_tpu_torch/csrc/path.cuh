@@ -13,6 +13,7 @@
 #pragma once
 
 #include "traverse.cuh"
+#include "traverse2.cuh"
 
 namespace rf {
 
@@ -133,8 +134,11 @@ __device__ __forceinline__ Vec3 sky_radiance(const RegenParams& p, Vec3 d) {
 
 // Pending NEE light sample of the previous segment: the shadow ray is traced
 // only where the contribution is non-zero (the TPU kernels give the others
-// a -inf bound, which cannot hit); returns srad + contrib * visible.
-__device__ __forceinline__ Vec3 add_nee(const SceneView& s, float t_max, Vec3 srad, Vec3 c,
+// a -inf bound, which cannot hit); returns srad + contrib * visible. View is
+// the plane walk's SceneView (K4, K8) or the packed walk's PackedView (K3,
+// K5).
+template <class View>
+__device__ __forceinline__ Vec3 add_nee(const View& s, float t_max, Vec3 srad, Vec3 c,
                                         Vec3 shadow_o, Vec3 shadow_d) {
   float vis = 1.0f;
   if (c.x != 0.0f || c.y != 0.0f || c.z != 0.0f) {

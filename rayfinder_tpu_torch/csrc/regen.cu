@@ -19,18 +19,22 @@
 // regen.py trace_regen_reference) operation by operation; the per-lane
 // pieces it shares with K4 and K5 are in path.cuh.
 //
-// What bounds it: the BVH walks (divergent, latency-bound node and triangle
-// loads, see traverse.cuh); lanes of one warp also run different numbers of
-// miss rounds. Keeping a lane's whole miss chain in registers is what this
-// kernel saves over a launch per segment. Later changes: warp-coherent
-// traversal, lane sorting, persistent work queues.
+// What bounds it: the BVH walks; lanes of one warp also run different
+// numbers of miss rounds. The walks read the packed tables (traverse2.cuh):
+// two-child 64-byte records and 16-byte triangle rows, each read in one
+// round trip of 16-byte loads. That shortened the narrow launches' chain of
+// dependent loads, but left the full-width launches' time as it was
+// (PERF.md), so what bounds those is not the load chain. Keeping a lane's
+// whole miss chain in registers is what this kernel saves over a launch per
+// segment. Later changes: warp-coherent traversal, lane sorting, persistent
+// work queues.
 
 #include "path.cuh"
 
 namespace {
 
 __global__ void trace_regen_kernel(
-    rf::SceneView s, rf::RegenParams p, int n, const float* __restrict__ u_in,
+    rf::PackedView s, rf::RegenParams p, int n, const float* __restrict__ u_in,
     const float* __restrict__ v_in, const float* __restrict__ noise_base,
     const int* __restrict__ sample_in, const int* __restrict__ bounce_in,
     const int* __restrict__ flag_in, const float* __restrict__ origin_in,
@@ -74,7 +78,7 @@ __global__ void trace_regen_kernel(
   int tri_fin = -1;
   while (sample < nf) {
     float t;
-    const int tri = rf::closest_hit(s, o, d, p.t_max, &t, nullptr);
+    const int tri = rf::closest_hit(s, o, d, p.t_max, &t);
     if (tri >= 0) {
       t_fin = t;
       tri_fin = tri;
@@ -99,17 +103,16 @@ __global__ void trace_regen_kernel(
 }  // namespace
 
 extern "C" int rf_trace_regen(
-    const float* aabb_min, const float* aabb_max, const int* tri_offset,
-    const int* second_child, const int* tri_count, const int* split_axis,
-    const float* tri_pos, int num_tris, const rf::RegenParams* params, int n,
+    const float* aabb_min, const float* aabb_max, const int* tri_offset, const int* tri_count,
+    const int* nodes2, const float* tri_pos4, int num_tris, const rf::RegenParams* params, int n,
     const float* u, const float* v_tex, const float* noise_base, const int* sample,
     const int* bounce, const int* flag, const float* origin, const float* direction,
     const float* thr, const float* srad, const float* lrad, const float* shadow_o,
     const float* shadow_d, const float* contrib, int* sample_out, int* bounce_out,
     float* origin_out, float* direction_out, float* thr_out, float* srad_out,
     float* lrad_out, float* t_out, int* tri_out, void* stream) {
-  const rf::SceneView s = rf::make_scene(aabb_min, aabb_max, tri_offset, second_child,
-                                         tri_count, split_axis, tri_pos, num_tris);
+  const rf::PackedView s = rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2,
+                                           tri_pos4, num_tris);
   trace_regen_kernel<<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       s, *params, n, u, v_tex, noise_base, sample, bounce, flag, origin, direction, thr,
       srad, lrad, shadow_o, shadow_d, contrib, sample_out, bounce_out, origin_out,

@@ -18,8 +18,8 @@
 // its tile, so here each thread runs its own loop with no barrier. Slots
 // are selected with unrolled compares (the TPU kernel's `sel`): indexing
 // the slot arrays with a runtime value would put them in local memory.
-// What bounds it: the BVH walks (traverse.cuh); the K slots' registers
-// lower occupancy as K grows.
+// What bounds it: the BVH walks, over the packed tables (traverse2.cuh);
+// the K slots' registers lower occupancy as K grows.
 
 #include "path.cuh"
 
@@ -27,7 +27,7 @@ namespace {
 
 template <int K>
 __global__ void trace_regen_segs_kernel(
-    rf::SceneView s, rf::RegenParams p, int n, const float* __restrict__ u_in,
+    rf::PackedView s, rf::RegenParams p, int n, const float* __restrict__ u_in,
     const float* __restrict__ v_in, const float* __restrict__ noise_base,
     const int* __restrict__ salloc_in, const float* __restrict__ lrad_in,
     const int* __restrict__ cnt_in, const float* __restrict__ ray_in,
@@ -90,7 +90,7 @@ __global__ void trace_regen_segs_kernel(
       }
     }
     float t;
-    const int hit = rf::closest_hit(s, ao, ad, p.t_max, &t, nullptr);
+    const int hit = rf::closest_hit(s, ao, ad, p.t_max, &t);
     if (hit >= 0) {
 #pragma unroll
       for (int j = 0; j < K; ++j) {
@@ -140,15 +140,15 @@ __global__ void trace_regen_segs_kernel(
 }  // namespace
 
 extern "C" int rf_trace_regen_segs(
-    const float* aabb_min, const float* aabb_max, const int* tri_offset,
-    const int* second_child, const int* tri_count, const int* split_axis,
-    const float* tri_pos, int num_tris, const rf::RegenParams* params, int n, int segs,
+    const float* aabb_min, const float* aabb_max, const int* tri_offset, const int* tri_count,
+    const int* nodes2, const float* tri_pos4, int num_tris, const rf::RegenParams* params,
+    int n, int segs,
     const float* u, const float* v_tex, const float* noise_base, const int* salloc,
     const float* lrad, const int* cnt, const float* ray, const float* thr, const float* nee,
     int* salloc_out, float* lrad_out, int* cnt_out, float* ray_out, float* thr_out,
     float* t_out, void* stream) {
-  const rf::SceneView s = rf::make_scene(aabb_min, aabb_max, tri_offset, second_child,
-                                         tri_count, split_axis, tri_pos, num_tris);
+  const rf::PackedView s = rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2,
+                                           tri_pos4, num_tris);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RF_SEGS_LAUNCH(K)                                                                     \
   trace_regen_segs_kernel<K><<<rf::grid_for(n), rf::kBlock, 0, st>>>(                         \

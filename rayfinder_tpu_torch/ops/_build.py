@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu", "counted.cu",
            "slab_entry.cu", "skyround.cu")
-HEADERS = ("traverse.cuh", "path.cuh", "shade.cuh")
+HEADERS = ("traverse.cuh", "traverse2.cuh", "path.cuh", "shade.cuh")
 # Flags of each source's compile; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +43,10 @@ _I = ctypes.c_int
 # Scene arguments of every entry point: the six BVH planes, the triangle
 # positions, the triangle count.
 _SCENE_ARGTYPES = [_P] * 7 + [_I]
+# ... and of the entry points over the packed walk tables (K3, K5): the
+# root's rows of aabb_min, aabb_max, tri_offset, tri_count, then bvh_nodes2,
+# tri_pos4, the triangle count.
+_PACKED_ARGTYPES = [_P] * 6 + [_I]
 # ... and of the in-kernel shade: triangle attributes, texture descriptors,
 # texels.
 _SHADE_ARGTYPES = [_P] * 3
@@ -52,11 +56,11 @@ _ARGTYPES = {
     # ..., origin, direction, t_max, n, occ, stream
     "rf_intersect_any": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P],
     # ..., params, n, 14 lane inputs, 9 outputs, stream
-    "rf_trace_regen": _SCENE_ARGTYPES + [_P, _I] + [_P] * 23 + [_P],
+    "rf_trace_regen": _PACKED_ARGTYPES + [_P, _I] + [_P] * 23 + [_P],
     # ..., shade tables, params, n, 14 lane inputs, 11 outputs, stream
     "rf_trace_regen_shaded": _SCENE_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25 + [_P],
     # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
-    "rf_trace_regen_segs": _SCENE_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
+    "rf_trace_regen_segs": _PACKED_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
     # ..., origin, direction, t_max, n, t, tri, counts, stream
     "rf_intersect_closest_counted": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
     # box_min, box_max, weight, m, group, origin, inv_dir, bound, n, need,
@@ -180,6 +184,26 @@ def scene_args(scene, device) -> list:
         ("bvh_split_axis", torch.int32, (n,)),
         ("tri_positions", torch.float32, (t, 3, 3)),
     )) + [t]
+
+
+def packed_args(scene, device) -> list:
+    """The pointer and triangle-count arguments of the packed walk
+    (csrc/traverse2.cuh), after checking its tables: the SoA planes that
+    hold the root's box and leaf range, and the packed tables, which the
+    kernel reads with 16-byte loads."""
+    n, t = scene.num_nodes, scene.num_triangles
+    args = _pointers(scene, device, (
+        ("bvh_aabb_min", torch.float32, (n, 3)),
+        ("bvh_aabb_max", torch.float32, (n, 3)),
+        ("bvh_tri_offset", torch.int32, (n,)),
+        ("bvh_tri_count", torch.int32, (n,)),
+        ("bvh_nodes2", torch.int32, ((n - 1) // 2, 16)),
+        ("tri_pos4", torch.float32, (t, 12)),
+    ))
+    for name in ("bvh_nodes2", "tri_pos4"):
+        if getattr(scene, name).data_ptr() % 16:
+            raise ValueError(f"scene.{name}: not 16-byte aligned")
+    return args + [t]
 
 
 def shade_args(scene, device) -> list:

@@ -6,10 +6,12 @@ then terminates flag==2 paths (flush + regenerate), then loops
 trace -> sky -> regenerate until it stops at a surface hit or runs out of
 samples. Lane arrays keep the TPU kernel's public layout: (B,) and (B, 3).
 
-The kernel (csrc/regen.cu) runs one thread per lane. The plain version
-`trace_regen_reference` does the same per lane in torch, over the torch BVH
-walk (render/traverse.py), one trace round at a time over the lanes still in
-flight. A wrapper given CPU tensors runs the plain version; given CUDA
+The kernel (csrc/regen.cu) runs one thread per lane; its walks read the
+scene's packed walk tables (`bvh_nodes2`, `tri_pos4`; csrc/traverse2.cuh),
+and a scene without them raises. The plain version `trace_regen_reference`
+does the same per lane in torch, over the torch BVH walk of the SoA planes
+(render/traverse.py), one trace round at a time over the lanes still in
+flight: both walks give the same t, tri and occlusion on every ray. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
 
 The parameter block and the plain per-lane helpers (primaries, add_nee) are
@@ -167,7 +169,7 @@ def trace_regen(
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_trace_regen(
-                *_build.scene_args(scene, dev), ctypes.addressof(params), n,
+                *_build.packed_args(scene, dev), ctypes.addressof(params), n,
                 *(tensor.data_ptr() for tensor, *_ in inputs),
                 *(out.data_ptr() for out in outputs),
                 _build.stream_of(dev),

@@ -12,7 +12,8 @@ restarting it with the next sample, until no slot is in flight.
 Per-slot columns keep the TPU kernel's public layout: slot_cnt (B, 3K)
 [sample, bounce, flag], slot_ray (B, 6K) [origin, direction], slot_thr
 (B, 6K) [thr, srad], slot_nee (B, 9K) [shadow_o, shadow_d, contrib]. The
-kernel (csrc/regen_segs.cu) runs one thread per lane. The plain version
+kernel (csrc/regen_segs.cu) runs one thread per lane over the packed walk
+tables, as K3 does (ops/regen.py). The plain version
 `trace_regen_segs_reference` runs the slot machine in torch, one trace round
 at a time over the lanes with a slot in flight. A wrapper given CPU tensors
 runs the plain version; given CUDA tensors it launches the kernel or raises.
@@ -94,7 +95,7 @@ def trace_regen_segs(
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_trace_regen_segs(
-                *_build.scene_args(scene, dev), ctypes.addressof(params), n, segs,
+                *_build.packed_args(scene, dev), ctypes.addressof(params), n, segs,
                 *(tensor.data_ptr() for tensor, *_ in inputs),
                 *(out.data_ptr() for out in outputs),
                 _build.stream_of(dev),

@@ -88,12 +88,9 @@ def ray_triangle(origin, direction, v0, v1, v2, t_max):
     return hit, t, u, v
 
 
-def ray_aabb(origin, inv_dir, dir_neg, aabb_min, aabb_max, t_max):
-    """Slab test (ray_intersection.cpp:101-136). dir_neg is bool (..., 3).
-
-    All three slabs are computed and combined with the reference's
-    asymmetric </> comparisons, which gives the accept set of its
-    early-out form."""
+def _slab_terms(origin, inv_dir, dir_neg, aabb_min, aabb_max):
+    """The terms of the slab test that do not depend on its bound: (tmin,
+    tmax, fail_xy, fail_z)."""
     near = torch.where(dir_neg, aabb_max, aabb_min)
     far = torch.where(dir_neg, aabb_min, aabb_max)
     t0 = (near - origin) * inv_dir
@@ -106,5 +103,22 @@ def ray_aabb(origin, inv_dir, dir_neg, aabb_min, aabb_max, t_max):
     fail_z = (tmin_xy > t1[..., 2]) | (t0[..., 2] > tmax_xy)
     tmin = torch.maximum(tmin_xy, t0[..., 2])
     tmax = torch.minimum(tmax_xy, t1[..., 2])
+    return tmin, tmax, fail_xy, fail_z
 
+
+def ray_aabb(origin, inv_dir, dir_neg, aabb_min, aabb_max, t_max):
+    """Slab test (ray_intersection.cpp:101-136). dir_neg is bool (..., 3).
+
+    All three slabs are computed and combined with the reference's
+    asymmetric </> comparisons, which gives the accept set of its
+    early-out form."""
+    tmin, tmax, fail_xy, fail_z = _slab_terms(origin, inv_dir, dir_neg, aabb_min, aabb_max)
     return ~fail_xy & ~fail_z & (tmin < t_max) & (tmax > 0.0)
+
+
+def ray_aabb_entry(origin, inv_dir, dir_neg, aabb_min, aabb_max):
+    """The slab test's entry distance: tmin where its bound-free terms pass,
+    +inf elsewhere, so that `ray_aabb(..., t_max)` is `entry < t_max` for
+    every t_max (the packed walk's stack key, csrc/traverse2.cuh)."""
+    tmin, tmax, fail_xy, fail_z = _slab_terms(origin, inv_dir, dir_neg, aabb_min, aabb_max)
+    return torch.where(~fail_xy & ~fail_z & (tmax > 0.0), tmin, torch.inf)

@@ -10,6 +10,24 @@ Texels are stored as the int32 view of the packed BGRA uint32 words, because
 torch's uint32 supports few operations; shifts and masks on the int32 view
 (`(w >> 16) & 0xFF`) give the same bytes.
 
+Beside the SoA node planes, the upload builds the packed walk tables of the
+path kernels K3 and K5 (csrc/traverse2.cuh) from them:
+
+* `bvh_nodes2`, (M, 16) int32: one aligned 64-byte record per interior node,
+  in node order (record r is the r-th interior node; the root, when it is
+  interior, is record 0). Words 0-5 are the left child's (node + 1) box,
+  min xyz then max xyz, and words 6-11 the right child's (`second_child`),
+  as the bit patterns of the SoA floats. Word 12 is the left child's
+  reference and word 13 the right's: the child's record index if it is
+  interior, its `tri_offset` if it is a leaf. Word 14 is the left child's
+  `tri_count` (0 if interior), word 15 the right child's `tri_count` with
+  the node's `split_axis` in bits 30-31.
+* `tri_pos4`, (T, 12) float32: v0, v1 and v2 of each triangle in leaf
+  order, each padded with a zero to 16 bytes.
+
+A leaf is a node with `tri_count > 0`, as the walks read it. The root's own
+box stays in the SoA planes, which the other walks read.
+
 The entry points put the scene on the card unless the caller names another
 device. They take the port's `FlattenedScene` and `Texture` and the JAX
 package's alike (dataclasses with the same fields).
@@ -59,6 +77,11 @@ class DeviceScene:
     # One 25-float shading row per triangle: 9 positions, 9 normals, 6 uvs,
     # the texture index as bitcast f32.
     tri_attrs: torch.Tensor  # (T, 25) f32
+
+    # Packed walk tables of K3 and K5, built from the planes above at upload
+    # (module docstring).
+    bvh_nodes2: torch.Tensor  # (M, 16) i32, one record per interior node
+    tri_pos4: torch.Tensor  # (T, 12) f32
 
     @property
     def num_triangles(self) -> int:
@@ -137,7 +160,38 @@ def _scene_arrays(
     )
 
 
+def _walk_tables(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """`bvh_nodes2` and `tri_pos4` (module docstring) from the SoA planes and
+    the triangle positions. Floats go over as their bits
+    (`ndarray.view(np.int32)`), never through arithmetic."""
+    box_min = np.ascontiguousarray(arrays["bvh_aabb_min"], np.float32).view(np.int32)
+    box_max = np.ascontiguousarray(arrays["bvh_aabb_max"], np.float32).view(np.int32)
+    count = np.asarray(arrays["bvh_tri_count"]).astype(np.int64)
+    offset = np.asarray(arrays["bvh_tri_offset"]).astype(np.int64)
+    second = np.asarray(arrays["bvh_second_child"]).astype(np.int64)
+    axis = np.asarray(arrays["bvh_split_axis"]).astype(np.int64)
+    interior = count <= 0
+    nodes = np.nonzero(interior)[0]
+    if count.max() >= 1 << 30 or not np.isin(axis[nodes], (0, 1, 2)).all():
+        raise ValueError("bvh_nodes2 holds leaf sizes below 2**30 and split axes 0-2")
+    record = np.cumsum(interior) - 1
+    leaf_count = np.where(interior, 0, count)
+    ref = np.where(interior, record, offset)
+    left, right = nodes + 1, second[nodes]
+    nodes2 = np.empty((nodes.shape[0], 16), np.int32)
+    nodes2[:, 0:3], nodes2[:, 3:6] = box_min[left], box_max[left]
+    nodes2[:, 6:9], nodes2[:, 9:12] = box_min[right], box_max[right]
+    nodes2[:, 12], nodes2[:, 13] = ref[left], ref[right]
+    nodes2[:, 14] = leaf_count[left]
+    nodes2[:, 15] = (leaf_count[right] | axis[nodes] << 30).astype(np.uint32).view(np.int32)
+    positions = np.asarray(arrays["tri_positions"], np.float32)
+    tri_pos4 = np.zeros((positions.shape[0], 3, 4), np.float32)
+    tri_pos4[:, :, :3] = positions
+    return dict(bvh_nodes2=nodes2, tri_pos4=tri_pos4.reshape(-1, 12))
+
+
 def _upload(arrays: dict[str, np.ndarray], device) -> DeviceScene:
+    arrays = {**arrays, **_walk_tables(arrays)}
     fields = {}
     for f in dataclasses.fields(DeviceScene):
         a = np.asarray(arrays[f.name])
@@ -166,7 +220,7 @@ def build_device_scene(
 def scene_from_jax(arrays: dict[str, np.ndarray], device="cuda") -> DeviceScene:
     """Carry a JAX `DeviceScene` over: `arrays` maps its field names to
     numpy arrays (`np.asarray` of each field). The TPU cluster fields are
-    ignored."""
+    ignored; the packed walk tables are built from the SoA planes."""
     return _upload(arrays, device)
 
 

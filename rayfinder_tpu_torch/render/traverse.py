@@ -17,13 +17,20 @@ ray's leaves entered and triangles tested, as the counted walk K6
 (csrc/counted.cu) does. Inside `with count_work() as work`, every walk
 counts, and `work` sums the work of all of them: what a kernel's bound is
 computed from.
+
+`intersect_packed` walks the same tree over the packed walk tables
+(`bvh_nodes2`, `tri_pos4`) by the rule of the path kernels' walk
+(csrc/traverse2.cuh): two children's slab tests per record, the far child
+pushed with its entry distance, a popped entry taken iff that distance is
+below the best t. It gives the same t, tri and occlusion as the walk above,
+and only the tests use it, to hold the packing and the rule on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .intersect import ray_aabb, ray_triangle
+from .intersect import ray_aabb, ray_aabb_entry, ray_triangle
 from .scene import DeviceScene
 
 STACK_DEPTH = 32
@@ -56,6 +63,25 @@ def _traverse(scene: DeviceScene, origin, direction, t_max, any_hit: bool,
     for k, total in enumerate(counts.sum(0, dtype=torch.int64).tolist()):
         sums[k + 1] += total
     return hit, t, tri, counts[:, 0]
+
+
+def _test_leaves(o, d, tris, v0, v1, v2, n_tri, bound, best, stop, any_hit: bool):
+    """Test the triangles `tris` (L, S) of the leaves that rays o, d (L, 3)
+    enter, in leaf order against the shrinking bound; slots k >= n_tri are
+    padding. All slots are tested at once without the bound; `t < bound`,
+    the test's one bound-dependent term, is then applied slot by slot.
+    Returns the new (bound, best, stop) and each ray's triangles tested."""
+    geo_hit, t, _, _ = ray_triangle(o[:, None], d[:, None], v0, v1, v2, float("inf"))
+    tested = torch.zeros_like(n_tri)
+    for k in range(tris.shape[1]):
+        live = (k < n_tri) & ~stop
+        tested += live.to(n_tri.dtype)
+        hit = live & geo_hit[:, k] & (t[:, k] < bound)
+        bound = torch.where(hit, t[:, k], bound)
+        best = torch.where(hit, tris[:, k].to(torch.int32), best)
+        if any_hit:
+            stop = stop | hit
+    return bound, best, stop, tested
 
 
 def _walk(scene: DeviceScene, origin, direction, t_max, any_hit: bool, count: bool):
@@ -102,27 +128,14 @@ def _walk(scene: DeviceScene, origin, direction, t_max, any_hit: bool, count: bo
         is_leaf = tri_count > 0
 
         # Leaf hit: test its triangles in order against the shrinking bound.
-        # All slots of the rays entering a leaf are tested at once without
-        # the bound; `t < bound`, the test's one bound-dependent term, is
-        # then applied slot by slot.
         leaf = torch.nonzero(aabb_hit & is_leaf)[:, 0]
         if leaf.numel():
             tris = (scene.bvh_tri_offset[node[leaf]].long()[:, None] + slot_k).clamp(
                 max=scene.num_triangles - 1)
             v = pos[tris]  # (leaves, max_leaf, 3, 3)
-            geo_hit, t, _, _ = ray_triangle(
-                o[leaf, None], d[leaf, None], v[:, :, 0], v[:, :, 1], v[:, :, 2], float("inf"))
-            bound, best, stop, n_tri = t_best[leaf], hit_tri[leaf], done[leaf], tri_count[leaf]
-            tested = torch.zeros_like(n_tri)
-            for k in range(max_leaf):
-                if count:
-                    tested += ((k < n_tri) & ~stop).to(torch.int32)
-                hit = (k < n_tri) & ~stop & geo_hit[:, k] & (t[:, k] < bound)
-                bound = torch.where(hit, t[:, k], bound)
-                best = torch.where(hit, tris[:, k].to(torch.int32), best)
-                if any_hit:
-                    stop = stop | hit
-            t_best[leaf], hit_tri[leaf], done[leaf] = bound, best, stop
+            t_best[leaf], hit_tri[leaf], done[leaf], tested = _test_leaves(
+                o[leaf], d[leaf], tris, v[:, :, 0], v[:, :, 1], v[:, :, 2], tri_count[leaf],
+                t_best[leaf], hit_tri[leaf], done[leaf], any_hit)
             if count:
                 visits[leaf, 1] += 1
                 visits[leaf, 2] += tested
@@ -182,3 +195,95 @@ def intersect_any(scene: DeviceScene, origin, direction, t_max):
     """Any-hit walk for shadow rays (wgsl shadowRay semantics). Returns
     occluded: (B,) bool."""
     return _traverse(scene, origin, direction, t_max, any_hit=True)[0]
+
+
+def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool = False):
+    """The walk of csrc/traverse2.cuh over `scene.bvh_nodes2` and
+    `scene.tri_pos4`, in lockstep: one step processes a record, tests a
+    leaf or pops one stack entry. origin/direction (B, 3) f32; t_max float
+    or (B,) f32.
+
+    Returns (hit, t, tri, slab_tests), each (B,); for a closest-hit walk
+    slab_tests equals `intersect_closest`'s nodes_visited."""
+    batch = origin.shape[0]
+    dev = origin.device
+    inv_dir = 1.0 / direction
+    t_full = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(batch).clone()
+    tri_full = torch.full((batch,), -1, dtype=torch.int32, device=dev)
+    tests_full = torch.ones(batch, dtype=torch.int32, device=dev)
+    if batch == 0:
+        return tri_full >= 0, t_full, tri_full, tests_full
+
+    nodes = scene.bvh_nodes2
+    lane = torch.arange(batch, device=dev)
+    o, d, inv = origin, direction, inv_dir
+    neg = inv < 0.0
+    t_best, hit_tri, tests = t_full.clone(), tri_full.clone(), tests_full.clone()
+    # The root: its box from the SoA planes, then record 0 or its leaf.
+    take = ray_aabb_entry(o, inv, neg, scene.bvh_aabb_min[0], scene.bvh_aabb_max[0]) < t_best
+    count = torch.where(take, scene.bvh_tri_count[0].long(), 0)
+    ref = torch.where(count > 0, scene.bvh_tri_offset[0].long(), 0)
+    sp = torch.zeros(batch, dtype=torch.long, device=dev)
+    stack_ref = torch.zeros(batch, STACK_DEPTH, dtype=torch.long, device=dev)
+    stack_count = torch.zeros(batch, STACK_DEPTH, dtype=torch.long, device=dev)
+    stack_key = torch.zeros(batch, STACK_DEPTH, dtype=torch.float32, device=dev)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+
+    while lane.numel():
+        leaf = torch.nonzero(~done & take & (count > 0))[:, 0]
+        rec = torch.nonzero(~done & take & (count <= 0))[:, 0]
+        pop = torch.nonzero(~done & ~take)[:, 0]
+
+        if leaf.numel():
+            n_tri = count[leaf]
+            tris = (ref[leaf, None] + torch.arange(int(n_tri.max()), device=dev)).clamp(
+                max=scene.num_triangles - 1)
+            v = scene.tri_pos4[tris]  # (leaves, max_leaf, 12)
+            t_best[leaf], hit_tri[leaf], done[leaf], _ = _test_leaves(
+                o[leaf], d[leaf], tris, v[..., 0:3], v[..., 4:7], v[..., 8:11], n_tri,
+                t_best[leaf], hit_tri[leaf], done[leaf], any_hit)
+            take[leaf] = False
+
+        if rec.numel():
+            row = nodes[ref[rec]]
+            box = row[:, :12].view(torch.float32)
+            args = (o[rec], inv[rec], neg[rec])
+            key_l = ray_aabb_entry(*args, box[:, 0:3], box[:, 3:6])
+            key_r = ray_aabb_entry(*args, box[:, 6:9], box[:, 9:12])
+            tests[rec] += 2
+            axis = ((row[:, 15] >> 30) & 3).long()
+            axis_neg = torch.gather(neg[rec], 1, axis[:, None])[:, 0]
+            left_ref, right_ref = row[:, 12].long(), row[:, 13].long()
+            left_count, right_count = row[:, 14].long(), (row[:, 15] & 0x3FFFFFFF).long()
+            far = (torch.where(axis_neg, left_ref, right_ref),
+                   torch.where(axis_neg, left_count, right_count),
+                   torch.where(axis_neg, key_l, key_r))
+            push = torch.nonzero(sp[rec] < STACK_DEPTH)[:, 0]
+            slot = (rec[push], sp[rec[push]])
+            stack_ref[slot], stack_count[slot], stack_key[slot] = (x[push] for x in far)
+            sp[rec] += 1
+            ref[rec] = torch.where(axis_neg, right_ref, left_ref)
+            count[rec] = torch.where(axis_neg, right_count, left_count)
+            take[rec] = torch.where(axis_neg, key_r, key_l) < t_best[rec]
+
+        if pop.numel():
+            empty = sp[pop] == 0
+            done[pop[empty]] = True
+            pop = pop[~empty]
+            sp[pop] -= 1
+            slot = (pop, sp[pop].clamp(max=STACK_DEPTH - 1))
+            ref[pop], count[pop] = stack_ref[slot], stack_count[slot]
+            take[pop] = stack_key[slot] < t_best[pop]
+
+        n_done = int(done.sum())
+        if 4 * n_done >= lane.numel():
+            fin = lane[done]
+            t_full[fin], tri_full[fin], tests_full[fin] = t_best[done], hit_tri[done], tests[done]
+            keep = ~done
+            lane, o, d, inv, neg = lane[keep], o[keep], d[keep], inv[keep], neg[keep]
+            t_best, hit_tri, tests = t_best[keep], hit_tri[keep], tests[keep]
+            take, count, ref, sp = take[keep], count[keep], ref[keep], sp[keep]
+            stack_ref, stack_count, stack_key = stack_ref[keep], stack_count[keep], stack_key[keep]
+            done = done[keep]
+
+    return tri_full >= 0, t_full, tri_full, tests_full

@@ -223,3 +223,149 @@ def test_sky_round_kernel_matches_plain(dev, scene8, mode):
     assert sky_round.launches == before + 1
     want = sky_round_reference(*args, 4, mode)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _path_state(scene, dev, w=64, h=48, spp=8):
+    """A dispatch over the w x h image of the bench view, its lane inputs,
+    and the state after one split step of the plain route (NEE samples
+    pending, scatter rays and fresh primaries mixed)."""
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+    from rayfinder_tpu_torch.render.tiling import block_order
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    ys, xs, _ = block_order(w, h)
+    ys, xs = torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+    lanes = dict(u=(xs.float() + 0.5) / w, v_tex=(ys.float() + 0.5) / h,
+                 noise_base=tile[(ys % 128).long(), (xs % 128).long()].contiguous())
+    disp = pt._Dispatch(
+        scene=scene, sky=sky,
+        camera=create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h),
+        kernels=pt._ENGINES["plain"],
+        inv_dims=(float(np.float32(1) / np.float32(w)), float(np.float32(1) / np.float32(h))),
+        frame_base=0, spp=spp, nf=spp, num_bounces=4,
+        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
+        solar=torch.as_tensor(sky.solar_radiances, device=dev))
+    return disp, lanes
+
+
+def test_split_kernel_equals_plain_on_every_output(dev, scene8):
+    """K3 over the packed walk tables against its plain version (the walk of
+    the SoA planes), bit for bit."""
+    from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    disp, lanes = _path_state(scene8, dev)
+    st = pt._initial_state(disp, lanes, lanes["u"].shape[0], dev)
+    lrad = disp.split_step(st, lanes, torch.zeros(lanes["u"].shape[0], 3, device=dev))
+    assert bool((st["flag"] > 0).any())
+    args = (*disp.pixel_args(lanes), T_MAX, st["sample"], st["bounce"], st["flag"],
+            st["origin"], st["direction"], st["thr"], st["srad"], lrad, st["shadow_o"],
+            st["shadow_d"], st["contrib"])
+    before = trace_regen.launches
+    got = trace_regen(*args)
+    assert trace_regen.launches == before + 1
+    for a, b in zip(got, trace_regen_reference(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("segs", [2, 3, 4])
+def test_segs_kernel_equals_plain_on_every_output(dev, scene8, segs):
+    """K5 over the packed walk tables against its plain version, bit for
+    bit."""
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs, trace_regen_segs_reference
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    disp, lanes = _path_state(scene8, dev)
+    n = lanes["u"].shape[0]
+    st = pt._initial_slots(disp, lanes, n, segs, dev)
+    lrad, flags = disp.segs_step(st, lanes, torch.zeros(n, 3, device=dev))
+    assert bool((flags > 0).any())
+    args = (*disp.pixel_args(lanes), T_MAX, st["salloc"], lrad, st["cnt"], st["ray"],
+            st["thr"], st["nee"])
+    before = trace_regen_segs.launches
+    got = trace_regen_segs(*args)
+    assert trace_regen_segs.launches == before + 1
+    for a, b in zip(got, trace_regen_segs_reference(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("segs", [1, 2, 3, 4])
+def test_path_kernels_walk_a_deep_and_a_one_leaf_scene(dev, segs):
+    """K3 (segs 1) and K5 (segs 2-4) on a BVH deeper than the 32-entry
+    stack (the stack overflows) and on a one-triangle scene (the root is a
+    leaf), against their plain versions, every slot's closest-hit and
+    shadow ray through the chain."""
+    from torch_deep_scene import bvh_depth, deep_rays, deep_scene
+
+    from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs, trace_regen_segs_reference
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene import FlattenedScene
+
+    flat, bvh = deep_scene()
+    deep = build_device_scene(flat, bvh=bvh, device=dev)
+    assert bvh_depth(bvh.triangle_count, bvh.second_child_offset) > 32
+    one = FlattenedScene(positions=flat.positions[:1], normals=flat.normals[:1],
+                         tex_coords=flat.tex_coords[:1], texture_indices=flat.texture_indices[:1])
+    for scene in (deep, build_device_scene(one, device=dev)):
+        disp, lanes = _path_state(scene, dev)
+        n = lanes["u"].shape[0]
+        # Closest-hit and shadow rays through the chain, half of them -x.
+        o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(n * segs, seed=3))
+        ones = torch.ones(n * segs, 3, device=dev)
+        if segs == 1:
+            st = pt._initial_state(disp, lanes, n, dev)
+            args = (*disp.pixel_args(lanes), T_MAX, st["sample"], st["bounce"],
+                    torch.ones_like(st["flag"]), o, d, ones, st["srad"],
+                    torch.zeros(n, 3, device=dev), o, d, ones)
+            kernel, reference = trace_regen, trace_regen_reference
+        else:
+            st = pt._initial_slots(disp, lanes, n, segs, dev)
+            st["cnt"][:, 2::3] = 1  # every slot's NEE sample pending
+            args = (*disp.pixel_args(lanes), T_MAX, st["salloc"], torch.zeros(n, 3, device=dev),
+                    st["cnt"], torch.cat([o, d], 1).reshape(n, 6 * segs), st["thr"],
+                    torch.cat([o, d, ones], 1).reshape(n, 9 * segs))
+            kernel, reference = trace_regen_segs, trace_regen_segs_reference
+        got = kernel(*args)
+        tri = got[-1] if segs == 1 else got[2][:, 2::3]
+        assert bool((tri >= 0).any())
+        for a, b in zip(got, reference(*args)):
+            assert torch.equal(a, b)
+
+
+def test_path_kernels_need_the_packed_tables(dev, scene8):
+    """K3 and K5 read only the packed walk tables: a scene without them
+    raises, and nothing falls back to the plane walk."""
+    import dataclasses
+
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    disp, lanes = _path_state(scene8, dev, 16, 16)
+    n = lanes["u"].shape[0]
+    st = pt._initial_state(disp, lanes, n, dev)
+    slots = pt._initial_slots(disp, lanes, n, 2, dev)
+    z3 = torch.zeros(n, 3, device=dev)
+    for broken, error in ((dict(bvh_nodes2=scene8.bvh_nodes2[:0]), ValueError),
+                          (dict(tri_pos4=None), TypeError)):
+        scene = dataclasses.replace(scene8, **broken)
+        pix = (scene, *disp.pixel_args(lanes)[1:], T_MAX)
+        before = trace_regen.launches, trace_regen_segs.launches
+        with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+            trace_regen(*pix, st["sample"], st["bounce"], st["flag"], st["origin"],
+                        st["direction"], st["thr"], st["srad"], z3, st["shadow_o"],
+                        st["shadow_d"], st["contrib"])
+        with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+            trace_regen_segs(*pix, slots["salloc"], z3, slots["cnt"], slots["ray"],
+                             slots["thr"], slots["nee"])
+        assert (trace_regen.launches, trace_regen_segs.launches) == before
