@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (rayfinder_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-times [--define RF_SEGS_MIN_BLOCKS=8]
+    python3 chip_smoke.py --kernel-times
 
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (nvcc). It imports only the port. It builds the port's CUDA
@@ -31,11 +31,15 @@ kernels from csrc/, then:
    and through the in-kernel route in one K4 call per dispatch
    (compact_floor = the batch); holds their accumulations to the split
    route's and the segs ray counts to its counts, and times three more
-   dispatches of each route in turns; then one instrumented dispatch of the
-   split and of the segs=2 route gives K3's and K5's device time per
-   launch, summed by the launch's lane count;
+   dispatches of each route in turns; then one instrumented dispatch of
+   each route (split, segs=2, in-kernel, in-kernel in one call) gives its
+   path kernel's (K3, K5, K4, K4) device time per launch, summed by the
+   launch's lane count;
 6. holds each path kernel (K3, K4, K5) to its plain version at the slice's
-   shapes, and counts the walks' work of each call;
+   shapes, and counts the walks' work of each call; K4 at two shapes: the
+   26,624 compacted lanes of the in-kernel route's first shaded phase with
+   their per-tile floor, and all 262,144 lanes at floor 0 (the one-call
+   route), there also against a second launch, bit for bit;
 7. the traversal efficiency of the bench (prof/diag_iters.py): the
    courtyard(26) through the production asset path (GLB -> .pt -> scene),
    its 512x512 primary rays and two dir-key-sorted bounce populations;
@@ -59,7 +63,8 @@ each launch, with a busy-wait queued ahead of the start event so that the
 host's time between launches is not counted (_timed_call).
 
 --kernel-times runs phases 1, 2 (on the big courtyard only), the
-instrumented dispatches of 5, 6 and 8 (K8 on the built courtyard), and
+instrumented dispatches of 5, 6, K7's time at phase 7's shape (on the built
+courtyard's leaves and primary rays) and 8 (K8 on the built courtyard), and
 prints their kernel numbers as one JSON line. Those phases use nothing
 that the port lacked before its packed walk tables, so a copy of this
 script times an older tree in turns with a newer one.
@@ -342,16 +347,16 @@ def _hold(label: str, names, k_out, p_out, int_names, card: str) -> float:
     return max(errs.values())
 
 
-def _equal(label: str, names, k_out, p_out, card: str) -> float:
-    """A bit-exact kernel's outputs against its plain version's: every
-    output equal on every lane (torch.equal). Returns the largest
-    |kernel - plain|, which is then 0."""
+def _equal(label: str, names, k_out, p_out, card: str, other: str = "plain") -> float:
+    """A bit-exact kernel's outputs against its plain version's (or
+    `other`'s): every output equal on every lane (torch.equal). Returns the
+    largest |kernel - other|, which is then 0."""
     import torch
 
     differ = [name for name, a, b in zip(names, k_out, p_out) if not torch.equal(a, b)]
-    print(f"  {label} == plain on every output {tuple(names)}: {not differ} [{card}]",
+    print(f"  {label} == {other} on every output {tuple(names)}: {not differ} [{card}]",
           flush=True)
-    _require(not differ, f"{label}: {differ} differ from the plain version")
+    _require(not differ, f"{label}: {differ} differ from {other}")
     return 0.0
 
 
@@ -429,9 +434,7 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
     from rayfinder_tpu_torch.ops.counted import (
         intersect_closest_counted, intersect_closest_counted_reference, walk_operations,
     )
-    from rayfinder_tpu_torch.ops.slab import (
-        PAIR_OPS, slab_entry_reduce, slab_entry_reduce_reference,
-    )
+    from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
     from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
     from rayfinder_tpu_torch.prof import diag_iters
     from rayfinder_tpu_torch.prof.scenes import BENCH_CAMERA, courtyard_pt_scene
@@ -499,26 +502,63 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
     k6_bound = _bound(walk_operations(c[0], c[2]),
                       _nbytes(o, d, prim["t"], prim["tri"], prim["counts"]) + 4 * n
                       + _walk_bytes(scene))
-    inv, bound = (1.0 / d).contiguous(), prim["bound"]
+    print(f"K6 counted walk: {k6_ms:.3f} ms (plain {k6_plain * 1e3:.1f} ms), bound "
+          f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}) at {n} rays [{card}]",
+          flush=True)
+    entries = [
+        _kernel_entry("intersect_closest_counted", "counted.cu", "prof/diag_iters.py:221",
+                      launches[0], 0.0, k6_ms, k6_plain * 1e3, k6_bound, "phase 7 efficiency"),
+        _k7_entry(boxes, o, d, prim["bound"], launches[1], k7_err, card),
+    ]
+    fields = {k: v for k, v in fields.items() if not k.startswith("need_over_tests")}
+    fields["rays"] = {name: int(r["o"].shape[0]) for name, r in results.items()}
+    return entries, fields, scene
+
+
+def _k7_entry(boxes, o, d, bound, launches: int, err: float, card: str) -> dict:
+    """K7's time, plain time and bound at phase 7's shape: the rays (o, d)
+    with their bounds against all the leaf boxes."""
+    from rayfinder_tpu_torch.ops.slab import (
+        PAIR_OPS, slab_entry_reduce, slab_entry_reduce_reference,
+    )
+    from rayfinder_tpu_torch.prof import diag_iters
+
+    box_min, box_max, count, _ = boxes
+    n, m = o.shape[0], box_min.shape[0]
+    inv = (1.0 / d).contiguous()
     args = (box_min, box_max, count, o, inv, bound, diag_iters.GROUP)
     k7_ms = _time_ms(lambda: slab_entry_reduce(*args), 3)
     _, k7_plain = _timed(lambda: slab_entry_reduce_reference(*args))
     k7_bound = _bound(PAIR_OPS * n * m, _nbytes(box_min, box_max, count, o, inv, bound)
                       + 8 * n)
-    print(f"K6 counted walk: {k6_ms:.3f} ms (plain {k6_plain * 1e3:.1f} ms), bound "
-          f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}); K7 slab entry: "
-          f"{k7_ms:.3f} ms (plain {k7_plain * 1e3:.1f} ms), bound {k7_bound['bound_ms']:.4f} "
-          f"ms ({k7_bound['bound_by']}), at {n} rays x {m} leaves [{card}]", flush=True)
-    entries = [
-        _kernel_entry("intersect_closest_counted", "counted.cu", "prof/diag_iters.py:221",
-                      launches[0], 0.0, k6_ms, k6_plain * 1e3, k6_bound, "phase 7 efficiency"),
-        _kernel_entry("slab_entry_reduce", "slab_entry.cu", "prof/probe_prebuilt.py:28",
-                      launches[1], k7_err, k7_ms, k7_plain * 1e3, k7_bound,
-                      "phase 7 efficiency"),
-    ]
-    fields = {k: v for k, v in fields.items() if not k.startswith("need_over_tests")}
-    fields["rays"] = {name: int(r["o"].shape[0]) for name, r in results.items()}
-    return entries, fields, scene
+    print(f"K7 slab entry: {k7_ms:.3f} ms (plain {k7_plain * 1e3:.1f} ms), bound "
+          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']}), at {n} rays x {m} leaves "
+          f"[{card}]", flush=True)
+    return _kernel_entry("slab_entry_reduce", "slab_entry.cu", "prof/probe_prebuilt.py:28",
+                         launches, err, k7_ms, k7_plain * 1e3, k7_bound, "phase 7 efficiency")
+
+
+def _k7_on_built_scene(scene, camera, dev, card: str) -> dict:
+    """--kernel-times: K7 at phase 7's shape without the .pt asset path: the
+    built courtyard's leaves and its 512x512 primary rays, bounded by K1's
+    hits; held to plain on 4,096 of them."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
+    from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
+    from rayfinder_tpu_torch.prof import diag_iters
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    boxes = diag_iters.leaf_boxes(scene)
+    o, d = diag_iters.primary_rays(camera, SLICE["width"], SLICE["height"], dev)
+    _, t, _, _ = intersect_closest_kernel(scene, o, d, T_MAX)
+    s = slice(100_000, 104_096)
+    args = (*boxes[:3], o[s].contiguous(), (1.0 / d[s]).contiguous(), t[s].contiguous(),
+            diag_iters.GROUP, True)
+    _require(all(torch.equal(a, b) for a, b in zip(slab_entry_reduce(*args),
+                                                   slab_entry_reduce_reference(*args))),
+             "K7 differs from its plain version")
+    return _k7_entry(boxes, o, d, t, 0, 0.0, card)
 
 
 def _probes(dev, card: str, scene) -> tuple[dict, dict]:
@@ -676,11 +716,28 @@ def _k4_args(scene, camera, sky, tile, dev) -> tuple:
     return args, sizes[1], floor, st
 
 
+def _k4_full_args(scene, camera, sky, tile, dev) -> tuple:
+    """K4's arguments at the one-call route's shape: all 262,144 lanes from
+    their initial state, floor 0."""
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    n = lanes["u"].shape[0]
+    st = pt._initial_state(disp, lanes, n, dev)
+    return (*disp.pixel_args(lanes), disp.num_bounces, 0, T_MAX, st["sample"], st["bounce"],
+            st["flag"], st["origin"], st["direction"], st["thr"], st["srad"],
+            torch.zeros(n, 3, device=dev), st["shadow_o"], st["shadow_d"], st["contrib"])
+
+
 def _dispatch_kernel_times(scene, sky, camera, tile, dev, card: str) -> dict:
     """One instrumented dispatch of samples 16-31 per route, after a warm-up
-    dispatch of samples 0-15: K3 on the split route and K5 on the segs=2
-    route, each launch's device time grouped by its lane count, and in
-    launch order (_kernel_times_by_width)."""
+    dispatch of samples 0-15: K3 on the split route, K5 on the segs=2 route,
+    K4 on the in-kernel route (the hybrid, and in one call per dispatch),
+    each launch's device time grouped by its lane count, and in launch order
+    (_kernel_times_by_width)."""
     import torch
 
     from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
@@ -690,13 +747,17 @@ def _dispatch_kernel_times(scene, sky, camera, tile, dev, card: str) -> dict:
               num_frames=nf, engine="kernel")
     zeros = torch.zeros(w * h, 3, device=dev)
     times = {}
-    for name, field, route in (("split", "split", {}), ("segs2", "segs", dict(segs=2))):
+    kernel_of = {"split": "K3", "segs": "K5", "shaded": "K4"}
+    for name, field, route in (
+            ("split", "split", {}), ("segs2", "segs", dict(segs=2)),
+            ("inkernel", "shaded", dict(inkernel=True)),
+            ("inkernel_one_call", "shaded", dict(inkernel=True, compact_floor=w * h))):
         warm = accumulate_samples_regen(scene, sky, camera, tile, 0, zeros, **route, **kw)
         by_width, launch_ms = _kernel_times_by_width(field, lambda: accumulate_samples_regen(
             scene, sky, camera, tile, nf, warm, **route, **kw))
         times[name] = by_width
         times[f"{name}_launch_ms"] = launch_ms
-        print(f"{'K3' if field == 'split' else 'K5'} per dispatch on the {name} route: "
+        print(f"{kernel_of[field]} per dispatch on the {name} route: "
               f"{sum(launch_ms):.3f} ms over {len(launch_ms)} launches; by lane count [launches, "
               f"ms] {json.dumps(by_width)}; first launch {launch_ms[0]:.4f} ms, the five longest "
               f"{[round(ms, 4) for ms in sorted(launch_ms)[-5:]]} [{card}]", flush=True)
@@ -803,8 +864,9 @@ def _ray_queries(scene26, camera, dev, card: str) -> list:
 def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) -> list:
     """Phase 6: each path kernel against its plain version at the slice's
     shapes, with the walks' work of each call; K3 and K5 equal theirs on
-    every output. Returns the K3, K4 and K5 kernel entries; `launches` holds
-    each one's launches on the run that drives it."""
+    every output; K4 at two shapes. Returns the K3, K4 (two) and K5 kernel
+    entries; `launches` holds each one's launches on the run that drives
+    it."""
     import torch
 
     from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
@@ -812,6 +874,7 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
     from rayfinder_tpu_torch.ops.regen_shaded import (
         trace_regen_shaded, trace_regen_shaded_reference,
     )
+    from rayfinder_tpu_torch.render.traverse import count_work
 
     n, nf = SLICE["width"] * SLICE["height"], SLICE["num_frames"]
     regen = "rayfinder_tpu/ops/pallas_regen.py"
@@ -831,6 +894,8 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
 
     # K4: the compacted lanes of the in-kernel route's first shaded phase,
     # with that phase's per-tile floor.
+    k4_names = ("sample", "bounce", "flag", "origin", "direction", "thr", "srad", "lrad",
+                "shadow_o", "shadow_d", "contrib")
     args, k4_lanes, floor, st = _k4_args(scene26, camera, sky, tile, dev)
     k_out = trace_regen_shaded(*args)
     p_out, k4_plain, work = _plain_work(lambda: trace_regen_shaded_reference(*args))
@@ -842,9 +907,28 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
           f"{k4_bound['bound_ms']:.4f} ms, {k4_bound['bound_by']}) at {k4_lanes} lanes, "
           f"per-tile floor {floor}: live {int((st['sample'] < nf).sum())} -> {live_after}; "
           f"walks {work} [{card}]", flush=True)
-    k4_err = _hold("K4", ("sample", "bounce", "flag", "origin", "direction", "thr", "srad",
-                          "lrad", "shadow_o", "shadow_d", "contrib"), k_out, p_out,
-                   ("sample", "bounce", "flag"), card)
+    k4_err = _hold("K4", k4_names, k_out, p_out, ("sample", "bounce", "flag"), card)
+    _require(torch.equal(k_out[0], p_out[0]), "K4: the survivors per tile differ from plain")
+
+    # K4 at the one-call route's shape: every lane from its initial state,
+    # floor 0. Two launches must agree bit for bit (the lanes take their work
+    # items in an order that varies). The plain version takes as long on a
+    # 128x128 window as on the whole slice (its time is that of its launches,
+    # ~65 rounds of two walks), so it is run once, on every lane, with the
+    # walks' work counted in the same run (its time includes the counting).
+    args = _k4_full_args(scene26, camera, sky, tile, dev)
+    k_out = trace_regen_shaded(*args)
+    _equal("K4 at floor 0", k4_names, k_out, trace_regen_shaded(*args), card,
+           other="a second launch")
+    with count_work() as work:
+        p_out, k4f_plain = _timed(lambda: trace_regen_shaded_reference(*args))
+    k4f_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26)
+                       + _scene_bytes(scene26, SHADE_TABLES))
+    k4f_ms = _time_ms(lambda: trace_regen_shaded(*args), 5)
+    print(f"K4 trace_regen_shaded, one call: {k4f_ms:.4f} ms (plain {k4f_plain * 1e3:.1f} ms, "
+          f"bound {k4f_bound['bound_ms']:.4f} ms, {k4f_bound['bound_by']}) at {n} lanes, floor "
+          f"0, {nf} samples; walks {work} [{card}]", flush=True)
+    k4f_err = _hold("K4 one call", k4_names, k_out, p_out, ("sample", "bounce", "flag"), card)
 
     # K5 (K = 2): all lanes after one iteration of the segs route.
     args, flags = _k5_args(scene26, camera, sky, tile, dev)
@@ -864,6 +948,9 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
         _kernel_entry("trace_regen_shaded", "regen_shaded.cu", f"{regen}:1715",
                       launches.get("K4", 0), k4_err, k4_ms, k4_plain * 1e3, k4_bound,
                       "phase 5 slice, in-kernel route"),
+        _kernel_entry("trace_regen_shaded_one_call", "regen_shaded.cu", f"{regen}:1715",
+                      launches.get("K4 one call", 0), k4f_err, k4f_ms, k4f_plain * 1e3,
+                      k4f_bound, "phase 5 slice, in-kernel route in one call"),
         _kernel_entry("trace_regen_segs", "regen_segs.cu", f"{regen}:1393",
                       launches.get("K5", 0), k5_err, k5_ms, k5_plain * 1e3, k5_bound,
                       "phase 5 slice, segs=2 route"),
@@ -1029,6 +1116,7 @@ def main(argv=None) -> int:
                 _require(r_rays.tolist() == [closest, shadow],
                          f"{name}: ray counts differ from the split route's")
         launches["K4"], launches["K5"] = route_launches["inkernel"], route_launches["segs2"]
+        launches["K4 one call"] = route_launches["inkernel_one_call"]
 
         # Host time is noisy: three more timed dispatches of each route, in
         # turns.
@@ -1045,14 +1133,16 @@ def main(argv=None) -> int:
         slice_numbers = {"mrays_per_s": route_rates, "repeats": repeats, "seconds": dt,
                          "closest": closest, "shadow": shadow, "peak_bytes": peak, "card": card}
 
-    # K3 and K5 per dispatch: one instrumented dispatch per route.
+    # K3, K5 and K4 per dispatch: one instrumented dispatch per route.
     by_width = _dispatch_kernel_times(scene26, sky, camera, tile, dev, card)
 
     # --- 6. each path kernel against its plain version at slice shapes ------
     path_entries = _path_kernels(scene26, camera, sky, tile, dev, card, launches)
 
     # --- 7. the traversal-efficiency path: K6 and K7 -----------------------
-    eff_entries, efficiency, scene_pt = _efficiency(dev, card) if full else ([], {}, scene26)
+    # (--kernel-times: K7 alone, on the built courtyard.)
+    eff_entries, efficiency, scene_pt = _efficiency(dev, card) if full else (
+        [_k7_on_built_scene(scene26, camera, dev, card)], {}, scene26)
 
     # --- 8. the probes: K7 at the TPU probe's shapes, K8 ---------------------
     k8_entry, probes = _probes(dev, card, scene_pt)

@@ -135,7 +135,7 @@ __device__ __forceinline__ Vec3 sky_radiance(const RegenParams& p, Vec3 d) {
 // Pending NEE light sample of the previous segment: the shadow ray is traced
 // only where the contribution is non-zero (the TPU kernels give the others
 // a -inf bound, which cannot hit); returns srad + contrib * visible. View is
-// the plane walk's SceneView (K4, K8) or the packed walk's PackedView (K3,
+// the plane walk's SceneView (K8) or the packed walk's PackedView (K3, K4,
 // K5).
 template <class View>
 __device__ __forceinline__ Vec3 add_nee(const View& s, float t_max, Vec3 srad, Vec3 c,

@@ -23,9 +23,9 @@
 // What bounds it on the card: divergent, latency-bound loads of BVH nodes
 // and triangles (each step of a thread depends on the previous load; warps
 // diverge on traversal order and depth), not arithmetic. The path kernels
-// K3 and K5 walk the same tree through two-child records and 16-byte loads
-// instead (traverse2.cuh), with the same results; K1, K2, K4, K6 and K8 read
-// the planes here. Tensor cores (wgmma) do not apply.
+// K3, K4 and K5 walk the same tree through two-child records and 16-byte
+// loads instead (traverse2.cuh), with the same results; K1, K2, K6 and K8
+// read the planes here. Tensor cores (wgmma) do not apply.
 
 #pragma once
 

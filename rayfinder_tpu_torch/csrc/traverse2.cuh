@@ -1,8 +1,8 @@
-// The BVH walk of the path kernels K3 (regen.cu) and K5 (regen_segs.cu) over
-// the packed walk tables: two-child 64-byte node records and 16-byte
-// triangle rows, read with 16-byte loads. Same results as the plane walk of
-// traverse.cuh, and as its plain torch version (render/traverse.py
-// intersect_packed, which holds the same rule).
+// The BVH walk of the path kernels K3 (regen.cu), K4 (regen_shaded.cu) and
+// K5 (regen_segs.cu) over the packed walk tables: two-child 64-byte node
+// records and 16-byte triangle rows, read with 16-byte loads. Same results
+// as the plane walk of traverse.cuh, and as its plain torch version
+// (render/traverse.py intersect_packed, which holds the same rule).
 //
 // Tables (built at upload, render/scene.py _walk_tables):
 //   bvh_nodes2 (M, 16) int32, one record per interior node, in node order:

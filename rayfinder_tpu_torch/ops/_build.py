@@ -43,7 +43,7 @@ _I = ctypes.c_int
 # Scene arguments of every entry point: the six BVH planes, the triangle
 # positions, the triangle count.
 _SCENE_ARGTYPES = [_P] * 7 + [_I]
-# ... and of the entry points over the packed walk tables (K3, K5): the
+# ... and of the entry points over the packed walk tables (K3, K4, K5): the
 # root's rows of aabb_min, aabb_max, tri_offset, tri_count, then bvh_nodes2,
 # tri_pos4, the triangle count.
 _PACKED_ARGTYPES = [_P] * 6 + [_I]
@@ -57,8 +57,10 @@ _ARGTYPES = {
     "rf_intersect_any": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P],
     # ..., params, n, 14 lane inputs, 9 outputs, stream
     "rf_trace_regen": _PACKED_ARGTYPES + [_P, _I] + [_P] * 23 + [_P],
-    # ..., shade tables, params, n, 14 lane inputs, 11 outputs, stream
-    "rf_trace_regen_shaded": _SCENE_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25 + [_P],
+    # ..., shade tables, params, n, 14 lane inputs, 11 outputs, the samples'
+    # radiance scratch and the item counter (both null above floor 0), stream
+    "rf_trace_regen_shaded": (_PACKED_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25
+                              + [_P, _P] + [_P]),
     # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
     "rf_trace_regen_segs": _PACKED_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
     # ..., origin, direction, t_max, n, t, tri, counts, stream

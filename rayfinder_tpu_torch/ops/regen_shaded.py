@@ -9,9 +9,16 @@ repeat while more than `live_floor` lanes of the lane's 128-lane tile have
 samples left, so a nonzero floor lets the caller compact the survivors and
 call again. Lane arrays keep the TPU kernel's public layout: (B,) and (B, 3).
 
-The kernel (csrc/regen_shaded.cu) runs one 128-thread block per tile and
-reads the triangle attributes and texels from global memory, so it has none
-of the TPU kernel's scene-size or VMEM limits. The plain version
+The kernel (csrc/regen_shaded.cu) walks the scene's packed walk tables
+(`bvh_nodes2`, `tri_pos4`; csrc/traverse2.cuh), and a scene without them
+raises; it reads the triangle attributes and texels from global memory, so
+it has none of the TPU kernel's scene-size or VMEM limits. Above floor 0 it
+runs one 128-thread block per tile. At floor 0 no lane is tied to its tile:
+the warps of a grid that fills the card take (lane, sample) work items from
+a counter, each item writes its sample's radiance to a scratch, and a second
+small kernel folds them into the lane's radiance in sample order, so every
+output equals the tile rule's bit for bit (the wrapper allocates the
+scratch, B x num_frames x 3 floats, and the zeroed counter). The plain version
 `trace_regen_shaded_reference` runs the same rounds in torch over the lanes
 of the tiles still running. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises.
@@ -73,13 +80,19 @@ def trace_regen_shaded(
     if n:
         params = _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
                          num_bounces=num_bounces, live_floor=live_floor)
+        scene_args = _build.packed_args(scene, dev) + _build.shade_args(scene, dev)
+        # Floor 0: the work items' radiance scratch and their counter.
+        scratch = None, None
+        if live_floor <= 0:
+            scratch = (torch.empty(n, num_frames, 3, dtype=torch.float32, device=dev),
+                       torch.zeros(1, dtype=torch.int64, device=dev))
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_trace_regen_shaded(
-                *_build.scene_args(scene, dev), *_build.shade_args(scene, dev),
-                ctypes.addressof(params), n,
+                *scene_args, ctypes.addressof(params), n,
                 *(tensor.data_ptr() for tensor, *_ in inputs),
                 *(out.data_ptr() for out in outputs),
+                *(t if t is None else t.data_ptr() for t in scratch),
                 _build.stream_of(dev),
             )
         _build.raise_on_error(err, "rf_trace_regen_shaded")

@@ -11,7 +11,7 @@ torch's uint32 supports few operations; shifts and masks on the int32 view
 (`(w >> 16) & 0xFF`) give the same bytes.
 
 Beside the SoA node planes, the upload builds the packed walk tables of the
-path kernels K3 and K5 (csrc/traverse2.cuh) from them:
+path kernels K3, K4 and K5 (csrc/traverse2.cuh) from them:
 
 * `bvh_nodes2`, (M, 16) int32: one aligned 64-byte record per interior node,
   in node order (record r is the r-th interior node; the root, when it is
@@ -78,8 +78,8 @@ class DeviceScene:
     # the texture index as bitcast f32.
     tri_attrs: torch.Tensor  # (T, 25) f32
 
-    # Packed walk tables of K3 and K5, built from the planes above at upload
-    # (module docstring).
+    # Packed walk tables of K3, K4 and K5, built from the planes above at
+    # upload (module docstring).
     bvh_nodes2: torch.Tensor  # (M, 16) i32, one record per interior node
     tri_pos4: torch.Tensor  # (T, 12) f32
 

@@ -173,14 +173,15 @@ def test_counted_kernel_matches_plain_and_k1(dev, scene8):
     assert torch.equal(got[3][:, 0], k1[3])
 
 
-@pytest.mark.parametrize("group,with_group_min", [(128, True), (7, True), (128, False)])
+@pytest.mark.parametrize("group,with_group_min", [(128, True), (7, True), (128, False),
+                                                  (100, True)])
 def test_slab_kernel_matches_plain(dev, group, with_group_min):
     """K7's need, group minima and selection against its plain version,
     exactly, with flat boxes and axis-parallel rays (NaN slab terms)."""
     from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
 
     rng = np.random.default_rng(group)
-    m, n = 1000, 3000
+    m, n = 1001, 3000
     lo = rng.uniform(-4, 4, (m, 3)).astype(np.float32)
     hi = lo + rng.uniform(0.0, 2.0, (m, 3)).astype(np.float32)
     hi[::7, 1] = lo[::7, 1]
@@ -201,6 +202,33 @@ def test_slab_kernel_matches_plain(dev, group, with_group_min):
     for a, b in zip(got, want):
         assert (a is None and b is None) or torch.equal(a, b)
     assert bool((got[2] >= 0).any()) and bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("n", [1, 127, 130])
+def test_slab_kernel_ragged_ray_tile(dev, n):
+    """K7 holds several rays per thread: ray counts that leave its last
+    register tile and its last block ragged, with a group (7) and a box
+    count (300) that divide neither each other nor the staged chunk."""
+    from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
+
+    rng = np.random.default_rng(n)
+    m = 300
+    lo = rng.uniform(-4, 4, (m, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.0, 2.0, (m, 3)).astype(np.float32)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[rng.random((n, 3)) < 1 / 4] = 0.0
+    d[np.all(d == 0, axis=1), 2] = 1.0
+    with np.errstate(divide="ignore"):
+        inv = (np.float32(1.0) / d).astype(np.float32)
+    bound = rng.uniform(0.5, 12.0, n).astype(np.float32)
+    weight = rng.integers(1, 3, m).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (lo, hi, weight, o, inv, bound)]
+    before = slab_entry_reduce.launches
+    got = slab_entry_reduce(*args, 7, True)
+    assert slab_entry_reduce.launches == before + 1
+    for a, b in zip(got, slab_entry_reduce_reference(*args, 7, True)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["full", "nosweep", "sweeponly", "noop", "fullwhile"])
@@ -341,13 +369,118 @@ def test_path_kernels_walk_a_deep_and_a_one_leaf_scene(dev, segs):
             assert torch.equal(a, b)
 
 
+K4_STATE = ("sample", "bounce", "flag", "origin", "direction", "thr", "srad", "lrad",
+            "shadow_o", "shadow_d", "contrib")
+
+
+def _assert_held(got, want):
+    """K4 against its plain version: at least 99.9% of lanes with equal
+    integer state (sample, bounce, flag), and on those lanes every float
+    within rtol 1e-4 / atol 1e-4 (the shade's sin, cos and pow differ in the
+    last place between the kernel and torch)."""
+    same = (got[0] == want[0]) & (got[1] == want[1]) & (got[2] == want[2])
+    assert float(same.float().mean()) >= 0.999
+    for name, a, b in zip(K4_STATE[3:], got[3:], want[3:]):
+        torch.testing.assert_close(a[same], b[same], rtol=1e-4, atol=1e-4, msg=name)
+
+
+def _shaded_args(disp, lanes, st, lrad, floor):
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    return (*disp.pixel_args(lanes), disp.num_bounces, floor, T_MAX, st["sample"], st["bounce"],
+            st["flag"], st["origin"], st["direction"], st["thr"], st["srad"], lrad,
+            st["shadow_o"], st["shadow_d"], st["contrib"])
+
+
+@pytest.mark.parametrize("floor", [0, 40])
+def test_shaded_kernel_matches_plain(dev, scene8, floor):
+    """K4 over the packed walk tables against its plain version, from the
+    state after one split step (NEE samples pending): the work-item loop at
+    floor 0, the tile rule at a floor of 40 lanes per tile. Then again from
+    the in-flight state the floor-40 call returns, down to floor 0."""
+    from rayfinder_tpu_torch.ops.regen_shaded import (
+        trace_regen_shaded, trace_regen_shaded_reference,
+    )
+    from rayfinder_tpu_torch.render import pathtracer as pt
+
+    disp, lanes = _path_state(scene8, dev)
+    n = lanes["u"].shape[0]
+    st = pt._initial_state(disp, lanes, n, dev)
+    lrad = disp.split_step(st, lanes, torch.zeros(n, 3, device=dev))
+    assert bool((st["flag"] > 0).any())
+    args = _shaded_args(disp, lanes, st, lrad, floor)
+    before = trace_regen_shaded.launches
+    got = trace_regen_shaded(*args)
+    assert trace_regen_shaded.launches == before + 1
+    want = trace_regen_shaded_reference(*args)
+    _assert_held(got, want)
+    live = (got[0] < disp.nf).view(-1, 128).sum(1)
+    if floor:
+        assert bool((live <= floor).all()) and bool((live > 0).any())
+        assert torch.equal(got[0], want[0])  # the survivors per tile
+        rest = dict(zip(K4_STATE, want))
+        args0 = _shaded_args(disp, lanes, rest, rest["lrad"], 0)
+        _assert_held(trace_regen_shaded(*args0), trace_regen_shaded_reference(*args0))
+    else:
+        assert not bool(live.any())
+
+
+def test_shaded_kernel_twice_is_equal(dev, scene8):
+    """At floor 0 the lanes take their work items in an order that varies
+    from launch to launch; no output may."""
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.render import pathtracer as pt
+
+    disp, lanes = _path_state(scene8, dev, 128, 96)
+    n = lanes["u"].shape[0]
+    st = pt._initial_state(disp, lanes, n, dev)
+    args = _shaded_args(disp, lanes, st, torch.zeros(n, 3, device=dev), 0)
+    first = trace_regen_shaded(*args)
+    for _ in range(3):
+        for a, b in zip(first, trace_regen_shaded(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("floor", [0, 40])
+def test_shaded_kernel_walks_a_deep_and_a_one_leaf_scene(dev, floor):
+    """K4 on a BVH deeper than the 32-entry stack and on a one-triangle
+    scene (the root is a leaf), against its plain version: every lane's
+    pending shadow ray and first closest-hit ray go through the chain."""
+    from torch_deep_scene import bvh_depth, deep_rays, deep_scene
+
+    from rayfinder_tpu_torch.ops.regen_shaded import (
+        trace_regen_shaded, trace_regen_shaded_reference,
+    )
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene import FlattenedScene
+
+    flat, bvh = deep_scene()
+    deep = build_device_scene(flat, bvh=bvh, device=dev)
+    assert bvh_depth(bvh.triangle_count, bvh.second_child_offset) > 32
+    one = FlattenedScene(positions=flat.positions[:1], normals=flat.normals[:1],
+                         tex_coords=flat.tex_coords[:1], texture_indices=flat.texture_indices[:1])
+    for scene in (deep, build_device_scene(one, device=dev)):
+        disp, lanes = _path_state(scene, dev)
+        n = lanes["u"].shape[0]
+        o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(n, seed=3))
+        st = pt._initial_state(disp, lanes, n, dev)
+        st.update(flag=torch.ones_like(st["flag"]), origin=o, direction=d, shadow_o=o,
+                  shadow_d=d, contrib=torch.ones(n, 3, device=dev))
+        args = _shaded_args(disp, lanes, st, torch.zeros(n, 3, device=dev), floor)
+        got = trace_regen_shaded(*args)
+        assert bool((got[7] != 0).any())
+        _assert_held(got, trace_regen_shaded_reference(*args))
+
+
 def test_path_kernels_need_the_packed_tables(dev, scene8):
-    """K3 and K5 read only the packed walk tables: a scene without them
+    """K3, K4 and K5 read only the packed walk tables: a scene without them
     raises, and nothing falls back to the plane walk."""
     import dataclasses
 
     from rayfinder_tpu_torch.ops.regen import trace_regen
     from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
     from rayfinder_tpu_torch.render import pathtracer as pt
     from rayfinder_tpu_torch.render.intersect import T_MAX
 
@@ -360,7 +493,7 @@ def test_path_kernels_need_the_packed_tables(dev, scene8):
                           (dict(tri_pos4=None), TypeError)):
         scene = dataclasses.replace(scene8, **broken)
         pix = (scene, *disp.pixel_args(lanes)[1:], T_MAX)
-        before = trace_regen.launches, trace_regen_segs.launches
+        before = trace_regen.launches, trace_regen_segs.launches, trace_regen_shaded.launches
         with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
             trace_regen(*pix, st["sample"], st["bounce"], st["flag"], st["origin"],
                         st["direction"], st["thr"], st["srad"], z3, st["shadow_o"],
@@ -368,4 +501,11 @@ def test_path_kernels_need_the_packed_tables(dev, scene8):
         with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
             trace_regen_segs(*pix, slots["salloc"], z3, slots["cnt"], slots["ray"],
                              slots["thr"], slots["nee"])
-        assert (trace_regen.launches, trace_regen_segs.launches) == before
+        for floor in (0, 40):
+            with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+                trace_regen_shaded(*pix[:-1], disp.num_bounces, floor, T_MAX, st["sample"],
+                                   st["bounce"], st["flag"], st["origin"], st["direction"],
+                                   st["thr"], st["srad"], z3, st["shadow_o"], st["shadow_d"],
+                                   st["contrib"])
+        assert (trace_regen.launches, trace_regen_segs.launches,
+                trace_regen_shaded.launches) == before

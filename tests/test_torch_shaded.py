@@ -23,7 +23,7 @@ from rayfinder_tpu.render.rng import blue_noise_tile as jax_tile
 from rayfinder_tpu.render.scene import build_device_scene as jax_build
 from rayfinder_tpu.scene.procedural import courtyard_scene
 from rayfinder_tpu.sky.model import sky_state_from_ui as jax_sky
-from rayfinder_tpu_torch.ops.regen import trace_regen_reference
+from rayfinder_tpu_torch.ops.regen import primaries, trace_regen_reference
 from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded, trace_regen_shaded_reference
 from rayfinder_tpu_torch.render.camera import create_camera, primary_ray
 from rayfinder_tpu_torch.render.intersect import T_MAX
@@ -142,6 +142,65 @@ def test_wrapper_runs_plain_version_on_cpu(scenes):
     # The inputs are not modified.
     for k, x in zip(STATE, args[13:]):
         assert np.array_equal(x.numpy(), state[k]), k
+
+
+@pytest.mark.parametrize("start", ["initial", "in_flight"])
+def test_samples_are_independent_items(scenes, start):
+    """What K4's work-item loop at floor 0 relies on: a sample's path depends
+    on its pixel and its sample index alone. The plain version run once per
+    sample (the lanes' state at sample s, num_frames = s + 1, zero lrad; the
+    lane's input sample continues the input state, a later one starts from a
+    fresh primary, an earlier one is done), its radiance folded in sample
+    order, equals the plain whole-lane run bit for bit on lrad and, from the
+    last sample, on the final state. Once from the initial state, once from
+    the in-flight state that a call with a floor of 100 returns."""
+    port, _ = scenes
+    w, h, nf, spp, nb = 16, 16, 4, 4, 3
+    cam, sky = create_camera(*CAM, w / h), sky_state_from_ui(*SKY)
+    u, v, nbase, inv_dims, state = _after_split_steps(
+        port, w, h, nf, spp, nb, steps=0 if start == "initial" else 2)
+    u, v, nbase = (torch.from_numpy(a) for a in (u, v, nbase))
+    state = {k: torch.from_numpy(x) for k, x in state.items()}
+
+    def run(num_frames, floor, st):
+        out = trace_regen_shaded_reference(port, cam, sky, u, v, nbase, inv_dims, 0, spp,
+                                           num_frames, nb, floor, T_MAX, *(st[k] for k in STATE))
+        return dict(zip(STATE, out))
+
+    if start == "in_flight":
+        state = run(nf, 100, state)
+        live = state["sample"] < nf
+        assert 0 < int(live.sum()) <= 200 and not bool(live.all())
+        assert len(torch.unique(state["sample"])) > 2 and bool((state["flag"][live] > 0).any())
+    whole = run(nf, 0, state)
+    assert not bool((whole["sample"] < nf).any())
+
+    n = u.shape[0]
+    first = state["sample"].clamp(max=nf)
+    lrad = state["lrad"].clone()
+    for s in range(int(first.min()), nf):
+        sample = torch.full_like(first, s)
+        o, d = primaries(cam, u, v, nbase, inv_dims, 0, spp, torch.arange(n), sample)
+        fresh = dict(sample=sample, bounce=torch.ones_like(first), flag=torch.zeros_like(first),
+                     origin=o, direction=d, thr=torch.ones(n, 3), srad=torch.zeros(n, 3),
+                     lrad=torch.zeros(n, 3), shadow_o=torch.full((n, 3), 1e30),
+                     shadow_d=torch.zeros(n, 3), contrib=torch.zeros(n, 3))
+        item = {}
+        for k in STATE:
+            keep = (first >= s).view(-1, *[1] * (fresh[k].dim() - 1))
+            item[k] = torch.where(keep, state[k], fresh[k])
+        # A lane whose input sample comes later has no item of sample s: it
+        # is dead in this run and its input state passes through.
+        item["sample"] = torch.where(first > s, s + 1, sample).to(torch.int32)
+        item["lrad"] = torch.zeros(n, 3)
+        out = run(s + 1, 0, item)
+        lrad = torch.where((first <= s)[:, None], lrad + out["lrad"], lrad)
+    assert torch.equal(lrad, whole["lrad"])
+    # The item of a lane's last sample leaves the lane's final state. Lanes
+    # with no sample left on entry pass through in both (same tiles live).
+    for k in STATE:
+        if k != "lrad":
+            assert torch.equal(out[k], whole[k]), k
 
 
 W, H, SPP = 32, 24, 2

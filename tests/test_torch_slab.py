@@ -102,6 +102,28 @@ def test_reductions_equal_numpy(monkeypatch, group, chunk, axis_parallel):
     assert torch.equal(without[0], need) and torch.equal(without[2], first)
 
 
+@pytest.mark.parametrize("axis_parallel", [False, True])
+def test_reductions_with_groups_straddling_the_kernel_chunks(axis_parallel):
+    """The CUDA kernel stages boxes in chunks of 256 and closes a group
+    wherever it ends: a group size (100) that neither divides 256 nor is
+    divided by it, over a box count (777) that is a multiple of neither, and
+    a ray count (130) that leaves the kernel's ray tile ragged. Here the
+    plain version is held to numpy on that case; the card test holds the
+    kernel to the plain version."""
+    m, n, group = 777, 130, 100
+    lo, hi, o, inv, bound = _inputs(m, n, seed=6, axis_parallel=axis_parallel)
+    weight = np.random.default_rng(7).integers(1, 3, m).astype(np.int32)
+    want = _numpy_reduce(_jax_table(lo, hi, o, inv, bound), weight, bound, group)
+    with np.errstate(invalid="ignore"):
+        need, gmin, first = slab_entry_reduce(
+            *(torch.from_numpy(a) for a in (lo, hi, weight, o, inv, bound)), group, True)
+    assert gmin.shape == (8, n)
+    np.testing.assert_array_equal(need.numpy(), want[0])
+    np.testing.assert_array_equal(gmin.numpy(), want[1])
+    np.testing.assert_array_equal(first.numpy(), want[2])
+    assert len(np.unique(first.numpy())) > 3
+
+
 def test_group_must_be_positive():
     lo, hi, o, inv, bound = (torch.from_numpy(a) for a in _inputs(4, 4, seed=5))
     with pytest.raises(ValueError, match="group"):
