@@ -9,32 +9,41 @@ kernels from csrc/, then:
 
 1. prints the card's name and power limit, the build time, and each
    kernel's registers, stack frame and spills (ptxas);
-2. runs the closest-hit (K1) and any-hit (K2) kernels on the 256 rays of
-   each *_courtyard8.npz golden and on 262,144 camera and random rays over
-   the 254K-triangle courtyard, and holds them to their plain torch
-   versions on the same card exactly (t at atol 0, tri, nodes visited,
-   occlusion); the counted walk (K6) on the same rays gives K1's work;
+2. runs the closest-hit (K1) and any-hit (K2) kernels, which walk the
+   packed tables, on the 256 rays of each *_courtyard8.npz golden and on
+   262,144 camera and random rays over the 254K-triangle courtyard, and
+   holds them to their plain torch versions on the same card exactly (t at
+   atol 0, tri, nodes visited, occlusion); the counted plane walk (K6) on
+   the same rays must equal K1 (t, tri, nodes) and gives its work, the
+   plain plane walk must equal K2;
 3. renders the untextured courtyard_scene(8) at 128x96, 8 spp, 4 bounces
-   through the kernels, through the plain versions, and through the
-   in-kernel (K4) and segs=2 (K5) routes: the tonemapped images must agree
-   at RMSE < 1e-3, each must lie within RMSE 5e-3 of
+   through the default route (one K4 call per dispatch) and its plain
+   version, the split route (K3) and its plain version, and the hybrid
+   in-kernel (K3 + K4) and segs=2 (K5) routes: the tonemapped images must
+   agree at RMSE < 1e-3, each must lie within RMSE 5e-3 of
    tests/goldens/courtyard_untextured_128x96_8spp.npz (baked by the JAX
-   package), the [closest, shadow] ray counts within 0.1%;
+   package), the [closest, shadow] ray counts, which every route counts,
+   equal among the kernel routes and within 0.1% of the plain ones;
 3b. the same for the textured courtyard_scene(8) (its textures built
-   without Pillow), through the split, in-kernel and segs=2 routes and the
-   plain in-kernel route, against
+   without Pillow), against
    tests/goldens/courtyard_textured_128x96_8spp.npz;
 4. runs the slice -- courtyard_scene(26) untextured (254,176 triangles),
-   512x512, 4 bounces, exact ray counts -- one warm-up dispatch of 16
-   samples, then one timed dispatch of 16;
-5. runs the slice through the in-kernel and segs=2 routes the same way,
-   and through the in-kernel route in one K4 call per dispatch
-   (compact_floor = the batch); holds their accumulations to the split
-   route's and the segs ray counts to its counts, and times three more
-   dispatches of each route in turns; then one instrumented dispatch of
-   each route (split, segs=2, in-kernel, in-kernel in one call) gives its
-   path kernel's (K3, K5, K4, K4) device time per launch, summed by the
-   launch's lane count;
+   512x512, 4 bounces -- through accumulate_samples_regen with no route
+   keyword: one warm-up dispatch of 16 samples, then one timed dispatch of
+   16, the kernels' launch counts set to 0 just before and read just
+   after: it must take one K4 call per dispatch and count 11,611,591 /
+   8,839,510 rays;
+5. runs the slice through every other route the same way (split, hybrid
+   in-kernel, segs=2, segs=4, and the one-call route by its keywords),
+   holds their accumulations to the default's and every route's ray
+   counts to the split route's, and times three more dispatches of each
+   route in turns; runs one capped dispatch (a sample count whose K4
+   scratch would pass the cap: two K4 calls) against the same dispatch with
+   the cap lifted, bit for bit; 5b does the route comparison again on the
+   textured courtyard(26) at 512x512; then one instrumented dispatch of
+   each route (split, segs=2, hybrid, one call) gives its path kernel's
+   (K3, K5, K4, K4) device time per launch, summed by the launch's lane
+   count;
 6. holds each path kernel (K3, K4, K5) to its plain version at the slice's
    shapes, and counts the walks' work of each call; K4 at two shapes: the
    26,624 compacted lanes of the in-kernel route's first shaded phase with
@@ -55,8 +64,11 @@ kernels from csrc/, then:
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
-(time, plain time, launches on the run that drives each kernel, bound);
-the last is {"ok": true, "device": {...}}.
+(time, plain time, launches on the run that drives each kernel, bound, and
+two closer figures beside it: the issue limit without FMAs and, for a walk,
+the bytes its rays load at the measured rate of data held in L2); the
+last is {"ok": true, "device": {...}}. Every printed time names the card and
+its power limit; the total seconds stand on a line before the card's.
 
 A kernel's time is the mean over launches of one CUDA event pair around
 each launch, with a busy-wait queued ahead of the start event so that the
@@ -87,6 +99,9 @@ GOLDENS = ROOT / "tests" / "goldens"
 SLICE = dict(width=512, height=512, num_bounces=4, spp=256, num_frames=16)
 CAMERA = ([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0)
 SKY = (2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+# The exact [closest, shadow] rays of the slice's timed dispatch (samples
+# 16-31), on every route.
+SLICE_RAYS = [11_611_591, 8_839_510]
 
 
 # Cycles of the busy-wait queued ahead of each timed launch (about 1 ms at
@@ -97,13 +112,39 @@ QUEUE_AHEAD_CYCLES = 2_000_000
 # outside the tensor cores, and device memory.
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# The BVH's SoA planes (the walk of K1, K2, K4, K6, K8), and the shading
-# tables of K4.
+# Two closer figures beside the bound (_bound): the issue limit and the
+# bytes each ray loads. The kernels build with --fmad=false, so the card
+# issues one instruction per lane and clock (half the FMA peak), and
+# comparisons, min/max, abs and selects issue at half of that; a kernel's
+# instructions then take max(full + half, 2 * half) issue slots. Counted from
+# csrc/traverse.cuh as (full-rate, half-rate) instructions: a slab test is 6
+# subtracts and 6 multiplies; 9 comparisons, 4 min/max and 7 selects. A
+# Moller-Trumbore test is 15 subtracts, 27 multiplies, 9 adds and a divide;
+# 7 comparisons and an abs. K7's inner loop per ray-box pair (its SASS): 6
+# adds, 6 multiplies and an integer add; 6 logic selects, 6 min/max, 6
+# comparisons and a predicate operation.
+SLOTS_PER_S = F32_OPS_PER_S / 2
+SLAB_TEST_SLOTS = (12, 20)
+TRIANGLE_TEST_SLOTS = (52, 8)
+PAIR_SLOTS = (13, 19)
+# A walk loads its nodes and triangles ray by ray through the caches, however
+# small the scene: per record read (two nodes visited below the root) 64
+# bytes, per triangle test three 16-byte rows. Set against the rate at which
+# plain torch passes move data held in L2, which main() measures (_l2_rate):
+# what the walk would take if every load went to L2. Loads that hit L1 do
+# not, so a walk can be faster than this figure: it is an estimate of the
+# L2's share, not a bound.
+LOADED_RECORD_BYTES = 64
+LOADED_TRIANGLE_BYTES = 48
+L2_PASS_BYTES = (8 << 20, 16 << 20)
+L2_RATE = {"bytes_per_s": None}
+# The BVH's SoA planes (the walk of K6 and K8), and the shading tables of
+# K4.
 NODE_PLANES = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_offset", "bvh_second_child",
                "bvh_tri_count", "bvh_split_axis")
 SHADE_TABLES = ("tri_attrs", "tex_desc", "texels")
-# The packed walk of K3 and K5 reads one 64-byte record per interior node,
-# and the root's rows of four of the planes.
+# The packed walk of K1-K5 reads one 64-byte record per interior node, and
+# the root's rows of four of the planes.
 RECORD_BYTES = 64
 ROOT_ROW_BYTES = 32
 
@@ -283,8 +324,10 @@ def _rmse(a, b) -> float:
 def _render_routes(scene, sky, tile, dev, label: str, golden, routes) -> dict:
     """Render the 128x96, 8 spp, 4-bounce courtyard through each route
     (name -> accumulate_samples_regen keywords); hold the images to each
-    other (RMSE < 1e-3) and to the JAX golden (RMSE < 5e-3), and the routes
-    that count rays to each other (0.1%)."""
+    other (RMSE < 1e-3) and to the JAX golden (RMSE < 5e-3), and their ray
+    counts to each other (0.1%: the kernels' sin, cos and pow differ from
+    torch's in the last place, so a plain run may scatter a ray elsewhere;
+    the kernel routes must count the same rays exactly)."""
     import numpy as np
     import torch
 
@@ -317,8 +360,11 @@ def _render_routes(scene, sky, tile, dev, label: str, golden, routes) -> dict:
     for name, c in counts.items():
         dev_c = float(np.max(np.abs(c - base) / base))
         _require(dev_c <= 1e-3, f"{label}: {name} ray counts differ from {first} by > 0.1%")
-    print(f"  ray counts of {sorted(counts)} within 0.1% (golden counts "
-          f"{golden['rays'].tolist()})", flush=True)
+        if routes[name].get("engine") == "kernel":
+            _require(c.tolist() == base.tolist(),
+                     f"{label}: the {name} route counts {c.tolist()}, {first} {base.tolist()}")
+    print(f"  ray counts of {sorted(counts)} within 0.1%, the kernel routes' equal (golden "
+          f"counts {golden['rays'].tolist()})", flush=True)
     return counts
 
 
@@ -391,15 +437,65 @@ def _walk_bytes(scene) -> int:
     return _nbytes(scene.tri_positions) + min(_scene_bytes(scene, NODE_PLANES), records)
 
 
-def _bound(ops: int, nbytes: int) -> dict:
+def _l2_rate(dev) -> tuple[float, dict]:
+    """The rate of data held in the card's L2: the fastest of plain torch
+    passes over buffers of L2_PASS_BYTES, a copy (bytes read plus written)
+    and a sum (bytes read). Returns (bytes per second, {pass: TB/s})."""
+    import torch
+
+    rates = {}
+    for nbytes in L2_PASS_BYTES:
+        src = torch.zeros(nbytes // 4, dtype=torch.int32, device=dev)
+        dst = torch.empty_like(src)
+        for name, fn, moved in ((f"copy of {nbytes >> 20} MiB", lambda: dst.copy_(src), 2 * nbytes),
+                                (f"sum of {nbytes >> 20} MiB", lambda: src.sum(), nbytes)):
+            for _ in range(3):
+                fn()
+            rates[name] = moved / (_time_ms(fn, 20) * 1e-3) / 1e12
+    return max(rates.values()) * 1e12, rates
+
+
+def _bound(ops: int, nbytes: int, issue=None, loaded: int | None = None) -> dict:
     """The least time the card could take: the larger of the operations at
     the float32 peak and the bytes (each input read once, each output
-    written once) at the memory rate."""
+    written once) at the memory rate. Beside it two closer figures of their
+    own names: issue_ms, the issue limit of `issue` = (full-rate, half-rate)
+    instructions without FMAs, and, for a walk, l2_ms, the time of the
+    `loaded` bytes its rays load one by one at the measured L2 rate."""
     ops_ms = ops / F32_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                ops=int(ops), bytes=int(nbytes))
+    out = dict(bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               ops=int(ops), bytes=int(nbytes))
+    if issue is not None:
+        full, half = issue
+        out["issue_ms"] = max(full + half, 2 * half) / SLOTS_PER_S * 1e3
+    if loaded is not None:
+        out["loaded_bytes"] = int(loaded)
+        out["l2_ms"] = loaded / L2_RATE["bytes_per_s"] * 1e3
+    return out
+
+
+def _second(bound: dict) -> str:
+    """The figures beside a bound, for a printed line."""
+    parts = [f"issue limit without FMAs {bound['issue_ms']:.4f} ms"]
+    if "l2_ms" in bound:
+        parts.append(f"{bound['loaded_bytes']} bytes loaded ray by ray at the L2 rate "
+                     f"{bound['l2_ms']:.4f} ms")
+    return "; ".join(parts)
+
+
+def _walk_issue(nodes: int, tests: int) -> tuple[int, int]:
+    """(full-rate, half-rate) instructions of walks that visited `nodes`
+    nodes and tested `tests` triangles in all."""
+    return (nodes * SLAB_TEST_SLOTS[0] + tests * TRIANGLE_TEST_SLOTS[0],
+            nodes * SLAB_TEST_SLOTS[1] + tests * TRIANGLE_TEST_SLOTS[1])
+
+
+def _walk_loaded(rays: int, nodes: int, tests: int) -> int:
+    """Bytes that `rays` walks load ray by ray: a record per two nodes
+    visited below the root, three rows per triangle test."""
+    return (nodes - rays) // 2 * LOADED_RECORD_BYTES + tests * LOADED_TRIANGLE_BYTES
 
 
 def _walk_ops(work: dict) -> int:
@@ -407,6 +503,14 @@ def _walk_ops(work: dict) -> int:
     from rayfinder_tpu_torch.ops.counted import walk_operations
 
     return sum(walk_operations(w[1], w[3]) for w in work.values())
+
+
+def _work_second(work: dict) -> dict:
+    """The `issue` and `loaded` arguments of _bound for the walks summed by
+    render.traverse.count_work."""
+    issues = [_walk_issue(w[1], w[3]) for w in work.values()]
+    return dict(issue=(sum(i[0] for i in issues), sum(i[1] for i in issues)),
+                loaded=sum(_walk_loaded(w[0], w[1], w[3]) for w in work.values()))
 
 
 def _plain_work(fn):
@@ -423,7 +527,8 @@ def _plain_work(fn):
 def _kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound, path) -> dict:
     return {"name": name, "route": "cuda", "source": f"rayfinder_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **bound, "library_ms": None, "path": path}
+            "plain_ms": plain_ms, "issue_ms": None, "l2_ms": None, **bound, "library_ms": None,
+            "path": path}
 
 
 def _efficiency(dev, card: str) -> tuple[list, dict, object]:
@@ -501,10 +606,11 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
     c = prim["counts"].sum(0, dtype=torch.int64).tolist()
     k6_bound = _bound(walk_operations(c[0], c[2]),
                       _nbytes(o, d, prim["t"], prim["tri"], prim["counts"]) + 4 * n
-                      + _walk_bytes(scene))
+                      + _walk_bytes(scene), issue=_walk_issue(c[0], c[2]),
+                      loaded=_walk_loaded(n, c[0], c[2]))
     print(f"K6 counted walk: {k6_ms:.3f} ms (plain {k6_plain * 1e3:.1f} ms), bound "
-          f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}) at {n} rays [{card}]",
-          flush=True)
+          f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}), {_second(k6_bound)} at {n} "
+          f"rays [{card}]", flush=True)
     entries = [
         _kernel_entry("intersect_closest_counted", "counted.cu", "prof/diag_iters.py:221",
                       launches[0], 0.0, k6_ms, k6_plain * 1e3, k6_bound, "phase 7 efficiency"),
@@ -530,10 +636,10 @@ def _k7_entry(boxes, o, d, bound, launches: int, err: float, card: str) -> dict:
     k7_ms = _time_ms(lambda: slab_entry_reduce(*args), 3)
     _, k7_plain = _timed(lambda: slab_entry_reduce_reference(*args))
     k7_bound = _bound(PAIR_OPS * n * m, _nbytes(box_min, box_max, count, o, inv, bound)
-                      + 8 * n)
+                      + 8 * n, issue=(PAIR_SLOTS[0] * n * m, PAIR_SLOTS[1] * n * m))
     print(f"K7 slab entry: {k7_ms:.3f} ms (plain {k7_plain * 1e3:.1f} ms), bound "
-          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']}), at {n} rays x {m} leaves "
-          f"[{card}]", flush=True)
+          f"{k7_bound['bound_ms']:.4f} ms ({k7_bound['bound_by']}), {_second(k7_bound)}, at {n} "
+          f"rays x {m} leaves [{card}]", flush=True)
     return _kernel_entry("slab_entry_reduce", "slab_entry.cu", "prof/probe_prebuilt.py:28",
                          launches, err, k7_ms, k7_plain * 1e3, k7_bound, "phase 7 efficiency")
 
@@ -620,10 +726,15 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
         c = intersect_closest_counted(scene, *prof_skyround.sample_rays(pargs, r),
                                       prof_skyround.T_MAX)[3].sum(0, dtype=torch.int64)
         nodes, tests = nodes + int(c[0]), tests + int(c[2])
+    # (The sky's and the primary's operations are taken at the full rate.)
+    full, half = _walk_issue(nodes, tests)
     bound = _bound(walk_operations(nodes, tests) + n * rounds * (SKY_OPS + REGEN_OPS),
-                   _nbytes(*pargs[3:6]) + 4 * n + _walk_bytes(scene))
+                   _nbytes(*pargs[3:6]) + 4 * n + _walk_bytes(scene),
+                   issue=(full + n * rounds * (SKY_OPS + REGEN_OPS), half),
+                   loaded=_walk_loaded(n * rounds, nodes, tests))
     print(f"K8 full, duck camera, {rounds} rounds: plain {plain_s * 1e3:.1f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]", flush=True)
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {_second(bound)} [{card}]",
+          flush=True)
     entry = _kernel_entry("sky_round", "skyround.cu", "prof/prof_skyround.py:147", launches,
                           err, times["duck_full"], plain_s * 1e3, bound, "phase 8 probes")
     return entry, numbers
@@ -748,9 +859,11 @@ def _dispatch_kernel_times(scene, sky, camera, tile, dev, card: str) -> dict:
     zeros = torch.zeros(w * h, 3, device=dev)
     times = {}
     kernel_of = {"split": "K3", "segs": "K5", "shaded": "K4"}
+    # Every route by explicit keywords, which a tree from before the default
+    # changed takes too.
     for name, field, route in (
-            ("split", "split", {}), ("segs2", "segs", dict(segs=2)),
-            ("inkernel", "shaded", dict(inkernel=True)),
+            ("split", "split", dict(inkernel=False)), ("segs2", "segs", dict(segs=2)),
+            ("inkernel", "shaded", dict(inkernel=True, compact_floor=4096)),
             ("inkernel_one_call", "shaded", dict(inkernel=True, compact_floor=w * h))):
         warm = accumulate_samples_regen(scene, sky, camera, tile, 0, zeros, **route, **kw)
         by_width, launch_ms = _kernel_times_by_width(field, lambda: accumulate_samples_regen(
@@ -819,7 +932,7 @@ def _ray_queries(scene26, camera, dev, card: str) -> list:
         intersect_closest_kernel, intersect_closest_reference,
     )
     from rayfinder_tpu_torch.render.intersect import T_MAX
-    from rayfinder_tpu_torch.render.traverse import count_work
+    from rayfinder_tpu_torch.render.traverse import count_work, intersect_any
 
     o, d = _rays(camera, 131072, 131072, seed=0, dev=dev)
     intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
@@ -835,10 +948,13 @@ def _ray_queries(scene26, camera, dev, card: str) -> list:
     c = counts6.sum(0, dtype=torch.int64).tolist()
     n_rays = o.shape[0]
     ray_bytes = _nbytes(o, d) + 4 * n_rays + _walk_bytes(scene26)
-    k1_bound = _bound(walk_operations(c[0], c[2]), ray_bytes + 12 * n_rays)
+    k1_bound = _bound(walk_operations(c[0], c[2]), ray_bytes + 12 * n_rays,
+                      issue=_walk_issue(c[0], c[2]), loaded=_walk_loaded(n_rays, c[0], c[2]))
+    # ... counted by the plane walk, which K2 must also equal.
     with count_work() as work:
-        intersect_any_reference(scene26, o, d, T_MAX)
-    k2_bound = _bound(_walk_ops(work), ray_bytes + n_rays)
+        plane_occ = intersect_any(scene26, o, d, T_MAX)
+    _require(torch.equal(plane_occ, walk["occ"]), "K2 differs from the plane walk")
+    k2_bound = _bound(_walk_ops(work), ray_bytes + n_rays, **_work_second(work))
     # Timed with t_max already on the card: given a float, the wrappers copy
     # it from the host, which waits for the stream and puts a host gap
     # inside each event pair.
@@ -848,10 +964,11 @@ def _ray_queries(scene26, camera, dev, card: str) -> list:
     k2_ms = _time_ms(lambda: intersect_any_kernel(scene26, o, d, t_dev), 20)
     k2_plain = _time_ms(lambda: intersect_any_reference(scene26, o, d, T_MAX), 2)
     print(f"K1 closest: {k1_ms:.4f} ms (plain {k1_plain:.1f} ms, bound "
-          f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}); K2 any: {k2_ms:.4f} ms "
-          f"(plain {k2_plain:.1f} ms, bound {k2_bound['bound_ms']:.4f} ms, "
-          f"{k2_bound['bound_by']}) at {n_rays} rays; K6 == K1 on them; nodes/ray "
-          f"{c[0] / n_rays:.2f}, triangle tests/ray {c[2] / n_rays:.2f} [{card}]", flush=True)
+          f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}, {_second(k1_bound)}); K2 any: "
+          f"{k2_ms:.4f} ms (plain {k2_plain:.1f} ms, bound {k2_bound['bound_ms']:.4f} ms, "
+          f"{k2_bound['bound_by']}, {_second(k2_bound)}) at {n_rays} rays; K6 == K1 and the "
+          f"plane walk == K2 on them; nodes/ray {c[0] / n_rays:.2f}, triangle tests/ray "
+          f"{c[2] / n_rays:.2f} [{card}]", flush=True)
     walk_path = "phase 2 ray queries"
     return [
         _kernel_entry("intersect_closest", "walk.cu", "rayfinder_tpu/ops/pallas_walk.py:2034",
@@ -883,10 +1000,12 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
     args, flag2 = _k3_args(scene26, camera, sky, tile, dev)
     k_out = trace_regen(*args)
     p_out, k3_plain, work = _plain_work(lambda: trace_regen_reference(*args))
-    k3_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26))
+    k3_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26),
+                      **_work_second(work))
     k3_ms = _time_ms(lambda: trace_regen(*args), 10)
     print(f"K3 trace_regen: {k3_ms:.4f} ms (plain {k3_plain * 1e3:.1f} ms, bound "
-          f"{k3_bound['bound_ms']:.4f} ms, {k3_bound['bound_by']}) at {n} lanes; flags "
+          f"{k3_bound['bound_ms']:.4f} ms, {k3_bound['bound_by']}, {_second(k3_bound)}) at {n} "
+          f"lanes; flags "
           f"{torch.bincount(flag2, minlength=3).tolist()}; walks [rays, nodes, leaves, tests] "
           f"{work} [{card}]", flush=True)
     k3_err = _equal("K3", ("sample", "bounce", "origin", "direction", "thr", "srad", "lrad",
@@ -900,11 +1019,12 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
     k_out = trace_regen_shaded(*args)
     p_out, k4_plain, work = _plain_work(lambda: trace_regen_shaded_reference(*args))
     k4_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26)
-                      + _scene_bytes(scene26, SHADE_TABLES))
+                      + _scene_bytes(scene26, SHADE_TABLES), **_work_second(work))
     k4_ms = _time_ms(lambda: trace_regen_shaded(*args), 5)
     live_after = int((k_out[0] < nf).sum())
     print(f"K4 trace_regen_shaded: {k4_ms:.4f} ms (plain {k4_plain * 1e3:.1f} ms, bound "
-          f"{k4_bound['bound_ms']:.4f} ms, {k4_bound['bound_by']}) at {k4_lanes} lanes, "
+          f"{k4_bound['bound_ms']:.4f} ms, {k4_bound['bound_by']}, {_second(k4_bound)}) at "
+          f"{k4_lanes} lanes, "
           f"per-tile floor {floor}: live {int((st['sample'] < nf).sum())} -> {live_after}; "
           f"walks {work} [{card}]", flush=True)
     k4_err = _hold("K4", k4_names, k_out, p_out, ("sample", "bounce", "flag"), card)
@@ -923,10 +1043,11 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
     with count_work() as work:
         p_out, k4f_plain = _timed(lambda: trace_regen_shaded_reference(*args))
     k4f_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26)
-                       + _scene_bytes(scene26, SHADE_TABLES))
+                       + _scene_bytes(scene26, SHADE_TABLES), **_work_second(work))
     k4f_ms = _time_ms(lambda: trace_regen_shaded(*args), 5)
     print(f"K4 trace_regen_shaded, one call: {k4f_ms:.4f} ms (plain {k4f_plain * 1e3:.1f} ms, "
-          f"bound {k4f_bound['bound_ms']:.4f} ms, {k4f_bound['bound_by']}) at {n} lanes, floor "
+          f"bound {k4f_bound['bound_ms']:.4f} ms, {k4f_bound['bound_by']}, "
+          f"{_second(k4f_bound)}) at {n} lanes, floor "
           f"0, {nf} samples; walks {work} [{card}]", flush=True)
     k4f_err = _hold("K4 one call", k4_names, k_out, p_out, ("sample", "bounce", "flag"), card)
 
@@ -934,10 +1055,12 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
     args, flags = _k5_args(scene26, camera, sky, tile, dev)
     k_out = trace_regen_segs(*args)
     p_out, k5_plain, work = _plain_work(lambda: trace_regen_segs_reference(*args))
-    k5_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26))
+    k5_bound = _bound(_walk_ops(work), _nbytes(*args, *k_out) + _walk_bytes(scene26),
+                      **_work_second(work))
     k5_ms = _time_ms(lambda: trace_regen_segs(*args), 10)
     print(f"K5 trace_regen_segs: {k5_ms:.4f} ms (plain {k5_plain * 1e3:.1f} ms, bound "
-          f"{k5_bound['bound_ms']:.4f} ms, {k5_bound['bound_by']}) at {n} lanes x 2 slots; "
+          f"{k5_bound['bound_ms']:.4f} ms, {k5_bound['bound_by']}, {_second(k5_bound)}) at {n} "
+          f"lanes x 2 slots; "
           f"slot flags {torch.bincount(flags, minlength=3).tolist()}; walks {work} [{card}]",
           flush=True)
     k5_err = _equal("K5", ("salloc", "lrad", "ocnt", "oray", "othr", "t"), k_out, p_out, card)
@@ -957,6 +1080,127 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
     ]
 
 
+# The routes of the fused loop, by accumulate_samples_regen's keywords; the
+# first is what it does with none.
+def _routes(batch: int) -> dict:
+    return {"default": {}, "split": dict(inkernel=False),
+            "inkernel_hybrid": dict(inkernel=True, compact_floor=4096),
+            "segs2": dict(segs=2), "segs4": dict(segs=4),
+            "inkernel_one_call": dict(inkernel=True, compact_floor=batch)}
+
+
+def _route_ab(scene, sky, camera, tile, dev, card: str, label: str) -> dict:
+    """Every route on one 512x512 scene: a warm-up dispatch of samples 0-15
+    and a timed dispatch of samples 16-31, with each route's own exact ray
+    counts and the path kernels' launch counts set to 0 just before and read
+    just after; then three more timed dispatches of each route, in turns
+    (host time spreads). Requires: the default route is one K4 call per
+    dispatch and no K3 or K5 call, every route's counts equal the split
+    route's, every accumulation agrees with the default's. Returns the
+    numbers."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+
+    w, h, nf = SLICE["width"], SLICE["height"], SLICE["num_frames"]
+    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
+              num_frames=nf, engine="kernel", count_rays=True)
+    zeros = torch.zeros(w * h, 3, device=dev)
+    kernels = {"K3": trace_regen, "K4": trace_regen_shaded, "K5": trace_regen_segs}
+    out = {"mrays_per_s": {}, "seconds": {}, "launches": {}, "rays": {}, "repeats": {},
+           "card": card}
+    accum_w = accum_d = None
+    for name, route_kw in _routes(w * h).items():
+        for k in kernels.values():
+            k.launches = 0
+        (warm, _), warm_s = _timed(lambda: accumulate_samples_regen(
+            scene, sky, camera, tile, 0, zeros, **route_kw, **kw))
+        accum_w = warm if accum_w is None else accum_w
+        (accum, rays), secs = _timed(lambda: accumulate_samples_regen(
+            scene, sky, camera, tile, nf, accum_w, **route_kw, **kw))
+        accum_d = accum if accum_d is None else accum_d
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        out["launches"][name], out["rays"][name] = counts, rays.tolist()
+        out["seconds"][name] = secs
+        out["mrays_per_s"][name] = sum(out["rays"][name]) / secs / 1e6
+        err = float((accum - accum_d).abs().max())
+        print(f"{label} via {name}: {out['mrays_per_s'][name]:.3f} Mrays/s, {secs:.4f} s "
+              f"(warm-up dispatch {warm_s:.3f} s), rays [closest, shadow] {out['rays'][name]}, "
+              f"launches in 2 dispatches {counts}, max |accum - default| {err:.3e} [{card}]",
+              flush=True)
+        _require(bool(torch.isfinite(accum).all()) and float(accum.sum()) > 0.0,
+                 f"{label} {name}: the radiance is not finite and non-zero")
+        _require(bool(torch.allclose(accum, accum_d, rtol=1e-4, atol=2e-3)),
+                 f"{label} {name}: the accumulation differs from the default route's")
+    launches = out["launches"]
+    for name in ("default", "inkernel_one_call"):
+        _require(launches[name] == {"K3": 0, "K4": 2, "K5": 0},
+                 f"{label}: the {name} route is not one K4 call per dispatch: {launches[name]}")
+    _require(launches["split"]["K3"] > 0 and launches["split"]["K4"] == 0,
+             f"{label}: the split route did not run K3 alone")
+    _require(min(launches["inkernel_hybrid"]["K3"], launches["inkernel_hybrid"]["K4"]) > 0,
+             f"{label}: the hybrid route did not run K3 and K4")
+    _require(min(launches["segs2"]["K5"], launches["segs4"]["K5"]) > 0,
+             f"{label}: the segs routes did not run K5")
+    for name, rays in out["rays"].items():
+        _require(rays == out["rays"]["split"],
+                 f"{label}: the {name} route counts {rays}, the split route "
+                 f"{out['rays']['split']}")
+    repeats = out["repeats"] = {name: [] for name in out["rays"]}
+    for _ in range(3):
+        for name, route_kw in _routes(w * h).items():
+            _, secs = _timed(lambda: accumulate_samples_regen(
+                scene, sky, camera, tile, nf, accum_w, **route_kw, **kw))
+            repeats[name].append(sum(out["rays"][name]) / secs / 1e6)
+    print(f"{label} routes, Mrays/s over three more dispatches in turns (default first): "
+          + "; ".join(f"{k} {', '.join(f'{x:.3f}' for x in v)}" for k, v in repeats.items())
+          + f" [{card}]", flush=True)
+    return out
+
+
+def _capped_dispatch(scene, sky, camera, tile, dev, card: str) -> dict:
+    """One dispatch of the default route whose K4 scratch would pass the
+    cap: the slice's lanes with one sample more than a call may take. It
+    must run in two K4 calls and equal, bit for bit, the same dispatch with
+    the cap lifted (one call): radiance and ray counts."""
+    import torch
+
+    from rayfinder_tpu_torch.ops import regen_shaded
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+
+    w, h = SLICE["width"], SLICE["height"]
+    cap = regen_shaded.SCRATCH_CAP_BYTES
+    nf = regen_shaded.samples_per_call(w * h) + 1
+    _require(12 * w * h * nf > cap, "the capped dispatch's scratch would fit the cap")
+    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
+              num_frames=nf, count_rays=True)
+    start = torch.rand(w * h, 3, device=dev)
+    results = {}
+    for name, lifted in (("capped", cap), ("cap lifted", 12 * w * h * nf)):
+        regen_shaded.SCRATCH_CAP_BYTES = lifted
+        regen_shaded.trace_regen_shaded.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        (accum, rays), secs = _timed(lambda: accumulate_samples_regen(
+            scene, sky, camera, tile, 3, start, **kw))
+        results[name] = (accum, rays, regen_shaded.trace_regen_shaded.launches, secs,
+                         torch.cuda.max_memory_allocated() - before)
+    regen_shaded.SCRATCH_CAP_BYTES = cap
+    (a, ra, la, sa, pa), (b, rb, lb, sb, pb) = results["capped"], results["cap lifted"]
+    same = bool(torch.equal(a, b)) and bool(torch.equal(ra, rb))
+    print(f"capped dispatch, {w * h} lanes x {nf} samples (scratch {12 * w * h * nf} bytes "
+          f"against the cap of {cap}): {la} K4 calls, {sa:.4f} s, peak {pa} bytes above the "
+          f"start; cap lifted: {lb} call, {sb:.4f} s, peak {pb} bytes; equal bit for bit "
+          f"(radiance, counts {ra.tolist()}): {same} [{card}]", flush=True)
+    _require((la, lb) == (2, 1), f"the capped dispatch took {la} K4 calls, the lifted one {lb}")
+    _require(same, "the capped dispatch differs from the uncapped one")
+    return {"samples": nf, "calls": la, "seconds": sa, "seconds_cap_lifted": sb,
+            "peak_bytes": pa, "peak_bytes_cap_lifted": pb, "rays": ra.tolist()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -974,11 +1218,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from rayfinder_tpu_torch.ops.regen import trace_regen
-    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
-    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
     from rayfinder_tpu_torch.render.camera import create_camera
-    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
     from rayfinder_tpu_torch.render.rng import blue_noise_tile
     from rayfinder_tpu_torch.render.scene import build_device_scene
     from rayfinder_tpu_torch.scene.procedural import courtyard_scene
@@ -989,7 +1229,12 @@ def main(argv=None) -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # --- 1. build -----------------------------------------------------------
+    t_start = time.perf_counter()
     ptxas = _build_report()
+    L2_RATE["bytes_per_s"], l2_passes = _l2_rate(dev)
+    print("data held in L2 moves at " + ", ".join(f"{v:.3f} TB/s ({k})" for k, v in
+                                                   l2_passes.items())
+          + f": the L2 rate is the fastest [{card}]", flush=True)
 
     sky = sky_state_from_ui(*SKY)
     tile = torch.from_numpy(blue_noise_tile()).to(dev)
@@ -1026,18 +1271,20 @@ def main(argv=None) -> int:
     camera = create_camera(*CAMERA, SLICE["width"] / SLICE["height"])
     walk_entries = _ray_queries(scene26, camera, dev, card)
 
-    w, h = SLICE["width"], SLICE["height"]
-    nf16 = SLICE["num_frames"]
-    launches, slice_numbers = {}, {}
+    launches, slice_numbers, textured_numbers = {}, {}, {}
     if full:
         # --- 3. small render: kernels vs plain vs the JAX-baked golden ------
-        # The split route through the kernels and the plain versions, and
-        # the in-kernel (K4) and segs (K5) routes through their kernels.
+        # The default route (one K4 call) through the kernel and its plain
+        # version, and the split, hybrid in-kernel and segs routes through
+        # their kernels; every route counts its own rays.
         _render_routes(scene8, sky, tile, dev, "render", np.load(
             GOLDENS / "courtyard_untextured_128x96_8spp.npz"), {
-                "kernel": dict(engine="kernel", count_rays=True),
-                "plain": dict(engine="plain", count_rays=True),
-                "inkernel": dict(engine="kernel", inkernel=True),
+                "default": dict(engine="kernel", count_rays=True),
+                "default plain": dict(engine="plain", count_rays=True),
+                "split": dict(engine="kernel", inkernel=False, count_rays=True),
+                "split plain": dict(engine="plain", inkernel=False, count_rays=True),
+                "inkernel hybrid": dict(engine="kernel", inkernel=True, compact_floor=1024,
+                                        count_rays=True),
                 "segs2": dict(engine="kernel", segs=2, count_rays=True),
             })
 
@@ -1046,92 +1293,43 @@ def main(argv=None) -> int:
         scene8t = build_device_scene(flat8t, textures=tex8t, device=dev)
         _render_routes(scene8t, sky, tile, dev, "textured render", np.load(
             GOLDENS / "courtyard_textured_128x96_8spp.npz"), {
-                "kernel": dict(engine="kernel", count_rays=True),
-                "inkernel": dict(engine="kernel", inkernel=True),
+                "default": dict(engine="kernel", count_rays=True),
+                "split": dict(engine="kernel", inkernel=False, count_rays=True),
+                "inkernel hybrid": dict(engine="kernel", inkernel=True, compact_floor=1024,
+                                        count_rays=True),
                 "segs2": dict(engine="kernel", segs=2, count_rays=True),
-                "inkernel plain": dict(engine="plain", inkernel=True),
+                "default plain": dict(engine="plain", count_rays=True),
             })
 
-        # --- 4. the slice: courtyard_scene(26), 512x512, 4 bounces ----------
-        kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
-                  num_frames=nf16, engine="kernel")
-        zeros = torch.zeros(w * h, 3, device=dev)
+        # --- 4, 5. the slice: courtyard_scene(26), 512x512, 4 bounces --------
+        # The main path is the default route: accumulate_samples_regen with
+        # no route keyword, one K4 call per dispatch, counting its own rays.
+        # Then every other route the same way, and all of them in turns.
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        trace_regen.launches = 0
-        t0 = time.perf_counter()
-        accum_w, _ = accumulate_samples_regen(scene26, sky, camera, tile, 0, zeros,
-                                              count_rays=True, **kw)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        accum, rays = accumulate_samples_regen(scene26, sky, camera, tile, nf16, accum_w,
-                                               count_rays=True, **kw)
-        total = float(accum.sum())  # fences the dispatch
-        dt = time.perf_counter() - t0
-        launches["K3"] = trace_regen.launches
-        closest, shadow = (int(x) for x in rays.cpu())
-        mrays = (closest + shadow) / dt / 1e6
-        peak = torch.cuda.max_memory_allocated()
-        print(f"slice courtyard26 512x512 4 bounces, 16 samples timed: {mrays:.3f} Mrays/s, "
-              f"{dt:.3f} s (warm-up dispatch {warm_s:.3f} s), rays closest={closest} "
-              f"shadow={shadow}, peak memory {peak / 2**20:.1f} MiB, K3 launches "
-              f"{launches['K3']} (2 dispatches) [{card}]", flush=True)
-        _require(launches["K3"] > 0, "the slice did not launch the path kernel")
-        _require(bool(torch.isfinite(accum).all()) and total > 0.0,
-                 "the slice's radiance is not finite and non-zero")
+        slice_numbers = _route_ab(scene26, sky, camera, tile, dev, card, "slice courtyard26")
+        slice_numbers["peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"slice peak memory {slice_numbers['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+        _require(slice_numbers["rays"]["default"] == SLICE_RAYS,
+                 f"the slice's timed dispatch counts {slice_numbers['rays']['default']}, "
+                 f"expected {SLICE_RAYS}")
+        route_launches = slice_numbers["launches"]
+        launches = {"K3": route_launches["split"]["K3"],
+                    "K4": route_launches["inkernel_hybrid"]["K4"],
+                    "K5": route_launches["segs2"]["K5"],
+                    "K4 one call": route_launches["default"]["K4"]}
+        slice_numbers["capped"] = _capped_dispatch(scene26, sky, camera, tile, dev, card)
 
-        # --- 5. the in-kernel (K4) and segs (K5) routes at full width -------
-        # Each route: a warm-up dispatch of samples 0-15, then the timed
-        # dispatch of samples 16-31 from phase 4's starting accumulation.
-        # The in-kernel route ends whole paths inside K4 and cannot count
-        # rays: its Mrays/s uses phase 4's exact counts, which are those of
-        # the same samples. "inkernel_one_call" is the in-kernel route with
-        # a compaction floor of the whole batch: no split phase, one K4 call
-        # per dispatch.
-        routes = {"inkernel": (dict(inkernel=True), trace_regen_shaded),
-                  "segs2": (dict(segs=2, count_rays=True), trace_regen_segs),
-                  "inkernel_one_call": (dict(inkernel=True, compact_floor=w * h),
-                                        trace_regen_shaded)}
-        route_launches, route_rates = {}, {"split": mrays}
-        for name, (route_kw, kernel) in routes.items():
-            kernel.launches = 0
-            _timed(lambda: accumulate_samples_regen(scene26, sky, camera, tile, 0, zeros,
-                                                    **route_kw, **kw))
-            out, secs = _timed(lambda: accumulate_samples_regen(
-                scene26, sky, camera, tile, nf16, accum_w, **route_kw, **kw))
-            route_launches[name] = kernel.launches
-            r_accum, r_rays = out if isinstance(out, tuple) else (out, None)
-            route_rates[name] = (closest + shadow) / secs / 1e6
-            counted = ("rays " + str(r_rays.tolist())) if r_rays is not None else (
-                "rays not counted: the rate uses phase 4's counts of the same samples")
-            err = float((r_accum - accum).abs().max())
-            print(f"slice via {name}: {route_rates[name]:.3f} Mrays/s (split {mrays:.3f}), "
-                  f"{secs:.3f} s, {counted}, {kernel.__name__} launches {kernel.launches} "
-                  f"(2 dispatches), max |accum - split| {err:.3e} [{card}]", flush=True)
-            _require(kernel.launches > 0, f"the {name} route did not launch {kernel.__name__}")
-            _require(bool(torch.allclose(r_accum, accum, rtol=1e-4, atol=2e-3)),
-                     f"{name}: the accumulation differs from the split route's")
-            if r_rays is not None:
-                _require(r_rays.tolist() == [closest, shadow],
-                         f"{name}: ray counts differ from the split route's")
-        launches["K4"], launches["K5"] = route_launches["inkernel"], route_launches["segs2"]
-        launches["K4 one call"] = route_launches["inkernel_one_call"]
-
-        # Host time is noisy: three more timed dispatches of each route, in
-        # turns.
-        repeats = {name: [] for name in ("split", *routes)}
-        route_kws = {"split": dict(count_rays=True), **{k: v[0] for k, v in routes.items()}}
-        for _ in range(3):
-            for name, route_kw in route_kws.items():
-                _, secs = _timed(lambda: accumulate_samples_regen(
-                    scene26, sky, camera, tile, nf16, accum_w, **route_kw, **kw))
-                repeats[name].append((closest + shadow) / secs / 1e6)
-        print("slice routes, Mrays/s over three dispatches in turns: "
-              + "; ".join(f"{k} {', '.join(f'{x:.3f}' for x in v)}" for k, v in repeats.items())
-              + f" [{card}]", flush=True)
-        slice_numbers = {"mrays_per_s": route_rates, "repeats": repeats, "seconds": dt,
-                         "closest": closest, "shadow": shadow, "peak_bytes": peak, "card": card}
+        # --- 5b. the routes on the textured courtyard at the slice's size ---
+        t0 = time.perf_counter()
+        flat26t, tex26t = courtyard_scene(26, textured=True)
+        scene26t = build_device_scene(flat26t, textures=tex26t, device=dev)
+        print(f"courtyard_scene(26, textured): {scene26t.num_triangles} triangles, "
+              f"{len(tex26t)} textures, {_nbytes(scene26t.texels)} bytes of texels, built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        textured_numbers = _route_ab(scene26t, sky, camera, tile, dev, card,
+                                     "textured courtyard26")
+        del scene26t
 
     # K3, K5 and K4 per dispatch: one instrumented dispatch per route.
     by_width = _dispatch_kernel_times(scene26, sky, camera, tile, dev, card)
@@ -1148,11 +1346,15 @@ def main(argv=None) -> int:
     k8_entry, probes = _probes(dev, card, scene_pt)
 
     kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry]
+    print(f"total {time.perf_counter() - t_start:.1f} s from the start of the build",
+          flush=True)
     print(card, flush=True)
     if not full:
         print(json.dumps({"kernel_times": {"kernels": kernels,
                                            "path_kernels_per_dispatch": by_width,
-                                           "ptxas": ptxas, "card": card}}), flush=True)
+                                           "ptxas": ptxas, "card": card,
+                                           "l2_bytes_per_s": L2_RATE["bytes_per_s"]}}),
+              flush=True)
         return 0
     print(json.dumps({
         "kernels": kernels,
@@ -1161,6 +1363,8 @@ def main(argv=None) -> int:
         "efficiency": efficiency,
         "probes": probes,
         "slice": slice_numbers,
+        "textured_slice": textured_numbers,
+        "l2_bytes_per_s": L2_RATE["bytes_per_s"],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import pathlib
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -33,14 +34,17 @@ def _library_path() -> pathlib.Path:
 
 
 def _compile(target: pathlib.Path) -> None:
+    """Build into a directory of this process's own, then move the library
+    into place: processes that build at once do not share a file."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(".tmp.so")
-    done = subprocess.run(["g++", *_FLAGS, str(_SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {_SOURCE.name} ({done.returncode}):\n"
-                           f"{done.stdout}{done.stderr}")
-    tmp.replace(target)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp_dir:
+        tmp = pathlib.Path(tmp_dir) / target.name
+        done = subprocess.run(["g++", *_FLAGS, str(_SOURCE), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {_SOURCE.name} ({done.returncode}):\n"
+                               f"{done.stdout}{done.stderr}")
+        tmp.replace(target)
 
 
 _lock = threading.Lock()

@@ -60,6 +60,13 @@
 //   5% faster than the compiler's own 77 registers; eight (64 registers)
 //   spill.
 //
+// Both kernels count the rays they trace, as the split route's loop does:
+// one closest segment per closest walk, one NEE shadow ray per surface hit,
+// counted at the hit (not where add_nee resolves it, so that a sample whose
+// NEE crosses a call boundary is counted once). A thread keeps two counters;
+// at its end each warp adds its sums to a (2,) int64 tensor with one
+// atomicAdd per counter. Integer sums: any order gives the same totals.
+//
 // What bounds both: the two BVH walks per round, which diverge (lanes of a
 // warp are at different nodes of different paths).
 
@@ -128,8 +135,21 @@ __device__ __forceinline__ void shade_no_hit(const rf::ShadeView& sh, const rf::
             &st->shadow_o, &st->shadow_d, &st->contrib);
 }
 
+// Add a warp's ray counts to ray_counts = [closest, shadow]. Every thread of
+// the warp calls it.
+__device__ __forceinline__ void add_ray_counts(unsigned closest, unsigned shadow,
+                                               unsigned long long* ray_counts) {
+  closest = __reduce_add_sync(kFullWarp, closest);
+  shadow = __reduce_add_sync(kFullWarp, shadow);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(ray_counts, static_cast<unsigned long long>(closest));
+    atomicAdd(ray_counts + 1, static_cast<unsigned long long>(shadow));
+  }
+}
+
 __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
-    rf::PackedView s, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out) {
+    rf::PackedView s, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
+    unsigned long long* __restrict__ ray_counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < n;
   const int nf = p.num_frames;
@@ -146,6 +166,7 @@ __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
                {0.0f, 0.0f, 0.0f}};
   rf::Vec3 lrad{0.0f, 0.0f, 0.0f};
   rf::Pixel px{0.5f, 0.5f, 0.0f, 0.0f};
+  unsigned closest = 0, shadow = 0;  // rays traced by this thread
   if (lane) {
     sample = min(in.sample[i], nf);
     st = load_state(in, i);
@@ -172,10 +193,13 @@ __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
     if (sample < nf) {
       float t;
       tri = rf::closest_hit(s, st.o, st.d, p.t_max, &t);
+      ++closest;
       if (tri < 0) {
         rf::fold_sky(rf::sky_radiance(p, st.d), st.thr, &st.srad, &lrad);
         ++sample;
         rf::regenerate(p, px, sample, &st.o, &st.d, &st.thr, &st.bounce);
+      } else {
+        ++shadow;
       }
     }
 
@@ -188,14 +212,22 @@ __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
     store_state(out, i, sample, st);
     rf::store3(out.lrad, i, lrad);
   }
+  add_ray_counts(closest, shadow, ray_counts);
 }
 
 // Resident blocks per SM that the items kernel is compiled for.
 constexpr int kItemBlocksPerSm = 7;
+// Stack entries of an item's walks kept in shared memory (traverse2.cuh):
+// on an NVIDIA H100 80GB HBM3 (700.00 W) 12 measured 1.12x faster than the
+// local stack at the 262,144-lane, 16-sample shape (8 and 16 the same, 24
+// 1.06x, all 32 no gain), while the tile kernel lost 12-25% with any.
+constexpr int kItemSharedEntries = 12;
 
 __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shaded_items_kernel(
-    rf::PackedView s, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
-    float* __restrict__ rad, unsigned long long* __restrict__ counter) {
+    rf::PackedView view, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
+    float* __restrict__ rad, unsigned long long* __restrict__ counter,
+    unsigned long long* __restrict__ ray_counts) {
+  const rf::SharedStackView<kItemSharedEntries> s{view};
   const int warp_lane = threadIdx.x & 31;
   const int nf = p.num_frames;
   const unsigned long long total = static_cast<unsigned long long>(n) * nf;
@@ -203,6 +235,7 @@ __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shad
   int i = 0, sample = 0;
   PathState st{};
   rf::Pixel px{};
+  unsigned closest = 0, shadow = 0;  // rays traced by this thread's items
 
   while (true) {
     // The warp takes its next 32 items together.
@@ -244,10 +277,12 @@ __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shad
         if (!done) {
           float t;
           const int tri = rf::closest_hit(s, st.o, st.d, p.t_max, &t);
+          ++closest;
           if (tri < 0) {
             st.srad = rf::add(st.srad, rf::mul(st.thr, rf::sky_radiance(p, st.d)));
             done = true;
           } else {
+            ++shadow;
             rf::shade(sh, p, px, true, tri, sample, &st.o, &st.d, &st.thr, &st.bounce,
                       &st.flag, &st.shadow_o, &st.shadow_d, &st.contrib);
           }
@@ -267,6 +302,8 @@ __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shad
       __syncwarp();
     }
   }
+  // The counter ran out for the whole warp at once: its threads leave together.
+  add_ray_counts(closest, shadow, ray_counts);
 }
 
 __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_fold_kernel(
@@ -306,7 +343,7 @@ extern "C" int rf_trace_regen_shaded(
     const float* contrib, int* sample_out, int* bounce_out, int* flag_out, float* origin_out,
     float* direction_out, float* thr_out, float* srad_out, float* lrad_out,
     float* shadow_o_out, float* shadow_d_out, float* contrib_out, float* sample_rad,
-    unsigned long long* item_counter, void* stream_ptr) {
+    unsigned long long* item_counter, unsigned long long* ray_counts, void* stream_ptr) {
   const rf::PackedView s = rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2,
                                            tri_pos4, num_tris);
   const rf::ShadeView sh{attrs, tex_desc, texels};
@@ -316,8 +353,8 @@ extern "C" int rf_trace_regen_shaded(
                     srad_out,   lrad_out,   shadow_o_out, shadow_d_out, contrib_out};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (params->live_floor > 0) {
-    trace_regen_shaded_tile_kernel<<<rf::grid_for(n), rf::kBlock, 0, stream>>>(s, sh, *params,
-                                                                                n, in, out);
+    trace_regen_shaded_tile_kernel<<<rf::grid_for(n), rf::kBlock, 0, stream>>>(
+        s, sh, *params, n, in, out, ray_counts);
     return static_cast<int>(cudaGetLastError());
   }
   // Floor 0: a persistent grid that fills the card, no wider than the items.
@@ -335,8 +372,8 @@ extern "C" int rf_trace_regen_shaded(
   const long long wanted = (items + rf::kBlock - 1) / rf::kBlock;
   const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(wanted < resident ? (wanted > 0 ? wanted : 1) : resident);
-  trace_regen_shaded_items_kernel<<<grid, rf::kBlock, 0, stream>>>(s, sh, *params, n, in, out,
-                                                                   sample_rad, item_counter);
+  trace_regen_shaded_items_kernel<<<grid, rf::kBlock, 0, stream>>>(
+      s, sh, *params, n, in, out, sample_rad, item_counter, ray_counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   trace_regen_shaded_fold_kernel<<<rf::grid_for(n), rf::kBlock, 0, stream>>>(sh, *params, n, in,

@@ -1,6 +1,7 @@
 // Per-thread BVH traversal for NVIDIA Hopper (sm_90a): closest hit and
-// any hit, as device functions shared by the walk kernels (walk.cu) and the
-// persistent path kernels (regen.cu, regen_shaded.cu, regen_segs.cu).
+// any hit, as device functions: the plane walk of the counted walk
+// (counted.cu) and the sky-round probe (skyround.cu), and the vector, slab
+// and triangle arithmetic that every kernel shares.
 //
 // Replaces the TPU's block-uniform cluster sweeps
 // (rayfinder_tpu/ops/pallas_walk.py: _closest_tile_sweep,
@@ -22,10 +23,10 @@
 //
 // What bounds it on the card: divergent, latency-bound loads of BVH nodes
 // and triangles (each step of a thread depends on the previous load; warps
-// diverge on traversal order and depth), not arithmetic. The path kernels
-// K3, K4 and K5 walk the same tree through two-child records and 16-byte
-// loads instead (traverse2.cuh), with the same results; K1, K2, K6 and K8
-// read the planes here. Tensor cores (wgmma) do not apply.
+// diverge on traversal order and depth), not arithmetic. The ray queries K1
+// and K2 and the path kernels K3, K4 and K5 walk the same tree through
+// two-child records and 16-byte loads instead (traverse2.cuh), with the same
+// results; K6 and K8 read the planes here. Tensor cores (wgmma) do not apply.
 
 #pragma once
 

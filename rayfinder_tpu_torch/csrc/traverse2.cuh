@@ -1,8 +1,9 @@
-// The BVH walk of the path kernels K3 (regen.cu), K4 (regen_shaded.cu) and
-// K5 (regen_segs.cu) over the packed walk tables: two-child 64-byte node
-// records and 16-byte triangle rows, read with 16-byte loads. Same results
-// as the plane walk of traverse.cuh, and as its plain torch version
-// (render/traverse.py intersect_packed, which holds the same rule).
+// The BVH walk of the ray queries K1 and K2 (walk.cu) and the path kernels
+// K3 (regen.cu), K4 (regen_shaded.cu) and K5 (regen_segs.cu) over the packed
+// walk tables: two-child 64-byte node records and 16-byte triangle rows,
+// read with 16-byte loads. Same results as the plane walk of traverse.cuh,
+// and as its plain torch version (render/traverse.py intersect_packed, which
+// holds the same rule).
 //
 // Tables (built at upload, render/scene.py _walk_tables):
 //   bvh_nodes2 (M, 16) int32, one record per interior node, in node order:
@@ -26,6 +27,43 @@
 // there the load chain is not what bounds the walk. A 12-byte stack entry
 // beat an 8-byte one that read a popped leaf's range back from its parent
 // record.
+//
+// At full width a launch's time follows the steps a warp takes times the
+// instructions of a record step (PERF.md; all on an NVIDIA H100 80GB HBM3,
+// 700.00 W: on 262,144 rays the plane walk, this walk in one loop of
+// record, leaf or pop steps, a while-while loop and a persistent grid
+// refilled from a counter were within 6% of each other, 0.131-0.146 ms).
+// A warp runs a step's record code if any lane is at a record;
+// in a one-step loop half of a ray's steps are pops (21 of 43), spent idle
+// beside other lanes' records, and a warp of random rays ran 73 steps for
+// lanes of 37, with leaf tests for one or two lanes in a quarter of them.
+// So walk_packed makes a warp's steps few and full:
+//   * seek: a lane pops until it holds an entry to take (a few instructions
+//     per pop), so every trip of the record loop reads a record: 22 steps
+//     per ray instead of 43;
+//   * while-while: the record loop runs until the lane holds a leaf to test
+//     or is done, and the leaf tests follow it, so the lanes of a warp meet
+//     at the leaf tests instead of running them for one lane at a time;
+//   * the slab key's four NaN-propagating min/max are one instruction each
+//     (min.NaN.f32 / max.NaN.f32), not two compares and a select.
+// Nothing is speculated: a ray's own steps keep their order, only when its
+// warp runs them changes. On that card the three together made K1 1.26x, K2
+// 1.19x, K3 1.19x, K4 1.18x (its work-item kernel at 262,144 lanes) to 1.55x
+// (its tile kernel at 26,624) and K5 1.29x faster than the one-step loop.
+//
+// Where the stack lives is the kernel's choice (kShared). 32 entries of 12
+// bytes in local memory are 384 bytes a thread, and local memory is cached
+// in L1: 900-1,300 resident threads hold 340-480 KB of stack per SM against
+// 256 KB of L1, and since the seek pops often, the stacks' lines evict the
+// records' (under the one-step loop, which pops one entry per step, the
+// stack in shared memory was 15% slower). With its first kShared entries in
+// shared memory (entry k of thread t at [k * kBlock + t]; the deeper ones,
+// rarely reached, stay local; the overflow rule is unchanged) the ray
+// queries of incoherent rays were 1.35x faster on that card and K4's
+// work-item kernel 1.12x, while launches that do not fill the card (K4's
+// tile kernel) or whose lanes are coherent lost up to 25% and 12%: so K1 and
+// K2 take 16 entries, K4's work items 12, and K3, K5 and K4's tile kernel
+// keep the local stack (PERF.md).
 //
 // The rule that keeps it bit-exact with the plane walk:
 //   * at a record, run the slab arithmetic of traverse.cuh (ray_aabb) on
@@ -70,7 +108,23 @@ struct PackedView {
 // operation, split at its bound term (render/intersect.py ray_aabb_entry).
 // A copy: on the H100, ray_aabb written over a shared helper made the plane
 // walk's kernels up to 8% slower (PERF.md); the card tests hold both walks
-// to their plain versions, which share their terms (_slab_terms).
+// to their plain versions, which share their terms (_slab_terms). The
+// NaN-propagating min/max are PTX's (max_nan1, min_nan1): of two zeros of
+// different sign they may return the other one than traverse.cuh's max_nan,
+// which no comparison downstream tells apart (a key is only compared with a
+// bound).
+__device__ __forceinline__ float max_nan1(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan1(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float slab_key(Vec3 lo, Vec3 hi, Vec3 o, Vec3 inv) {
   const float nx = inv.x < 0.0f ? hi.x : lo.x, fx = inv.x < 0.0f ? lo.x : hi.x;
   const float ny = inv.y < 0.0f ? hi.y : lo.y, fy = inv.y < 0.0f ? lo.y : hi.y;
@@ -79,12 +133,12 @@ __device__ __forceinline__ float slab_key(Vec3 lo, Vec3 hi, Vec3 o, Vec3 inv) {
   const float t0y = (ny - o.y) * inv.y, t1y = (fy - o.y) * inv.y;
   const float t0z = (nz - o.z) * inv.z, t1z = (fz - o.z) * inv.z;
 
-  const float tmin_xy = max_nan(t0x, t0y);
-  const float tmax_xy = min_nan(t1x, t1y);
+  const float tmin_xy = max_nan1(t0x, t0y);
+  const float tmax_xy = min_nan1(t1x, t1y);
   const bool fail_xy = (t0x > t1y) || (t0y > t1x);
   const bool fail_z = (tmin_xy > t1z) || (t0z > tmax_xy);
-  const float tmin = max_nan(tmin_xy, t0z);
-  const float tmax = min_nan(tmax_xy, t1z);
+  const float tmin = max_nan1(tmin_xy, t0z);
+  const float tmax = min_nan1(tmax_xy, t1z);
   return (!fail_xy && !fail_z && tmax > 0.0f) ? tmin : CUDART_INF_F;
 }
 
@@ -94,68 +148,115 @@ struct StackEntry {
   float key;  // entry distance (slab_key)
 };
 
+// The first kShared entries of the stacks of a block of kBlock threads, one
+// array per kShared for the closest and the any-hit walks of a kernel
+// (a thread runs one walk at a time).
+template <int kShared>
+__device__ __forceinline__ StackEntry* shared_stack() {
+  __shared__ StackEntry entries[kShared * kBlock];
+  return entries + threadIdx.x;
+}
+
 // One thread's walk over the packed tables. Returns the leaf-order index of
 // the accepted triangle (-1 if none); *t_best_out holds its t (t_max if
-// none). kAnyHit stops at the first accepted triangle.
-template <bool kAnyHit>
-__device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, float* t_best_out) {
+// none). kAnyHit stops at the first accepted triangle. kCount also counts
+// the records read into *records_out (K1: a closest walk makes one slab test
+// for the root and two per record, the nodes the plane walk visits); with
+// kCount false the counter is compiled out. kShared: how many of the stack's
+// first entries live in shared memory (0: none; the block is kBlock threads).
+template <bool kAnyHit, bool kCount = false, int kShared = 0>
+__device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, float* t_best_out,
+                           int* records_out = nullptr) {
+  static_assert(kShared >= 0 && kShared <= kStackDepth, "the stack has kStackDepth entries");
+  constexpr int kLocal = kStackDepth - kShared;
   const Vec3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float t_best = t_max;
   int hit_tri = -1;
-  StackEntry stack[kStackDepth];
+  int records = 0;
+  StackEntry stack[kLocal > 0 ? kLocal : 1];  // entries kShared .. kStackDepth - 1
+  StackEntry* shared = nullptr;               // entries 0 .. kShared - 1, kBlock apart
+  if constexpr (kShared > 0) shared = shared_stack<kShared>();
   int sp = 0;
   // The root: its box from the SoA planes, then its record (0) or its leaf.
   bool take = slab_key(load3(s.root_min, 0), load3(s.root_max, 0), o, inv) < t_best;
   int count = take ? __ldg(s.root_count) : 0;
   int ref = count > 0 ? __ldg(s.root_offset) : 0;
-  while (true) {
-    if (take) {
-      if (count > 0) {
-        for (int k = 0; k < count; ++k) {
-          const int tri = min(ref + k, s.num_tris - 1);
-          const float4* p4 = s.tris + 3ll * tri;
-          const float4 a = __ldg(p4), b = __ldg(p4 + 1), c = __ldg(p4 + 2);
-          const float p[9] = {a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
-          float t, u, v;
-          if (moller_trumbore(p, o, d, t_best, &t, &u, &v)) {
-            t_best = t;
-            hit_tri = tri;
-            if (kAnyHit) {
-              *t_best_out = t_best;
-              return hit_tri;
-            }
+  bool alive = true;
+  while (alive) {
+    // Records, until the ray holds a leaf to test or is done.
+    while (true) {
+      // Seek: pop until an entry to take.
+      while (!take && sp > 0) {
+        --sp;
+        const int slot = min(sp, kStackDepth - 1);
+        StackEntry e;
+        if constexpr (kShared == 0) {
+          e = stack[slot];
+        } else if constexpr (kLocal == 0) {
+          e = shared[slot * kBlock];
+        } else {
+          e = slot < kShared ? shared[slot * kBlock] : stack[slot - kShared];
+        }
+        ref = e.ref;
+        count = e.count;
+        take = e.key < t_best;
+      }
+      if (!take) {
+        alive = false;
+        break;
+      }
+      if (count > 0) break;
+      const int4* r = s.nodes + 4ll * ref;
+      const int4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2), m = __ldg(r + 3);
+      const float key_l = slab_key(
+          Vec3{__int_as_float(a.x), __int_as_float(a.y), __int_as_float(a.z)},
+          Vec3{__int_as_float(a.w), __int_as_float(b.x), __int_as_float(b.y)}, o, inv);
+      const float key_r = slab_key(
+          Vec3{__int_as_float(b.z), __int_as_float(b.w), __int_as_float(c.x)},
+          Vec3{__int_as_float(c.y), __int_as_float(c.z), __int_as_float(c.w)}, o, inv);
+      const int count_r = m.w & 0x3FFFFFFF;
+      const int axis = static_cast<int>(static_cast<unsigned>(m.w) >> 30);
+      const bool axis_neg = component(inv, axis) < 0.0f;
+      if (sp < kStackDepth) {
+        const StackEntry far = axis_neg ? StackEntry{m.x, m.z, key_l}
+                                        : StackEntry{m.y, count_r, key_r};
+        if constexpr (kShared == 0) {
+          stack[sp] = far;
+        } else if constexpr (kLocal == 0) {
+          shared[sp * kBlock] = far;
+        } else if (sp < kShared) {
+          shared[sp * kBlock] = far;
+        } else {
+          stack[sp - kShared] = far;
+        }
+      }
+      ++sp;
+      if (kCount) ++records;
+      ref = axis_neg ? m.y : m.x;
+      count = axis_neg ? count_r : m.z;
+      take = (axis_neg ? key_r : key_l) < t_best;
+    }
+    if (alive) {
+      for (int k = 0; k < count; ++k) {
+        const int tri = min(ref + k, s.num_tris - 1);
+        const float4* p4 = s.tris + 3ll * tri;
+        const float4 a = __ldg(p4), b = __ldg(p4 + 1), c = __ldg(p4 + 2);
+        const float p[9] = {a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
+        float t, u, v;
+        if (moller_trumbore(p, o, d, t_best, &t, &u, &v)) {
+          t_best = t;
+          hit_tri = tri;
+          if (kAnyHit) {
+            alive = false;
+            break;
           }
         }
-      } else {
-        const int4* r = s.nodes + 4ll * ref;
-        const int4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2), m = __ldg(r + 3);
-        const float key_l = slab_key(
-            Vec3{__int_as_float(a.x), __int_as_float(a.y), __int_as_float(a.z)},
-            Vec3{__int_as_float(a.w), __int_as_float(b.x), __int_as_float(b.y)}, o, inv);
-        const float key_r = slab_key(
-            Vec3{__int_as_float(b.z), __int_as_float(b.w), __int_as_float(c.x)},
-            Vec3{__int_as_float(c.y), __int_as_float(c.z), __int_as_float(c.w)}, o, inv);
-        const int count_r = m.w & 0x3FFFFFFF;
-        const int axis = static_cast<int>(static_cast<unsigned>(m.w) >> 30);
-        const bool axis_neg = component(inv, axis) < 0.0f;
-        if (sp < kStackDepth) {
-          stack[sp] = axis_neg ? StackEntry{m.x, m.z, key_l} : StackEntry{m.y, count_r, key_r};
-        }
-        ++sp;
-        ref = axis_neg ? m.y : m.x;
-        count = axis_neg ? count_r : m.z;
-        take = (axis_neg ? key_r : key_l) < t_best;
-        continue;
       }
+      take = false;
     }
-    if (sp == 0) break;
-    --sp;
-    const StackEntry e = stack[min(sp, kStackDepth - 1)];
-    ref = e.ref;
-    count = e.count;
-    take = e.key < t_best;
   }
   *t_best_out = t_best;
+  if (kCount) *records_out = records;
   return hit_tri;
 }
 
@@ -169,7 +270,27 @@ __device__ __forceinline__ bool any_hit(const PackedView& s, Vec3 o, Vec3 d, flo
   return walk_packed<true>(s, o, d, t_max, &t) >= 0;
 }
 
-// The view of K3's and K5's C entry points: the root's rows of the SoA
+// A PackedView whose walks keep the first kShared stack entries in shared
+// memory: a kernel passes it where it would pass the PackedView.
+template <int kShared>
+struct SharedStackView {
+  PackedView view;
+};
+
+template <int kShared>
+__device__ __forceinline__ int closest_hit(const SharedStackView<kShared>& s, Vec3 o, Vec3 d,
+                                           float t_max, float* t_out) {
+  return walk_packed<false, false, kShared>(s.view, o, d, t_max, t_out);
+}
+
+template <int kShared>
+__device__ __forceinline__ bool any_hit(const SharedStackView<kShared>& s, Vec3 o, Vec3 d,
+                                        float t_max) {
+  float t;
+  return walk_packed<true, false, kShared>(s.view, o, d, t_max, &t) >= 0;
+}
+
+// The view of the C entry points of K1-K5: the root's rows of the SoA
 // planes (box, tri_offset, tri_count) and the packed tables.
 inline PackedView make_packed(const float* aabb_min, const float* aabb_max,
                               const int* tri_offset, const int* tri_count, const int* nodes2,

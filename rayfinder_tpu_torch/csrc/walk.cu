@@ -1,70 +1,91 @@
 // Closest-hit (K1) and any-hit (K2) kernels: one thread per ray over (B,)
-// rays, each walking the BVH with the device functions of traverse.cuh.
+// rays, each walking the packed walk tables of traverse2.cuh (two-child
+// 64-byte node records, 16-byte triangle rows, 16-byte loads).
 //
 // Replace the TPU kernels pallas_intersect_closest and pallas_intersect_any
 // (rayfinder_tpu/ops/pallas_walk.py, via _common_call; bodies
 // _make_closest_kernel and _make_any_kernel). Their cluster sweeps run
-// inline in the path kernel (regen.cu); these standalone launches serve
-// the exact golden checks of the traversal and any caller that only
-// traces rays. Bounded by divergent, latency-bound node and triangle loads
-// (see traverse.cuh); speed work is for later changes.
+// inline in the path kernels; these standalone launches answer ray queries:
+// the exact golden checks of the traversal, the probes, and any caller that
+// only traces rays.
+//
+// The walk is traverse2.cuh's walk_packed, shared with the path kernels: t,
+// tri and occlusion equal the plane walk's bit for bit. K1 also returns the
+// plane walk's node count: a closest walk makes one slab test per node the
+// plane walk visits, one for the root and two per record.
+//
+// What bounds it on the card (traverse2.cuh, PERF.md): 262,144 rays load
+// 0.4 GB of records and triangles ray by ray through L1 and L2 (bypassing L1
+// doubles the time), and the launch's time follows the number of steps a
+// warp takes times the instructions of a record step; walk_packed's seek
+// and while-while loops and its one-instruction min/max are shaped for
+// that, and the first 16 entries of each ray's stack live in shared memory
+// so that the stacks do not evict the records from L1. On an NVIDIA H100
+// 80GB HBM3 (700.00 W) that reads 0.091 (K1) and 0.084 ms (K2) against 0.141
+// and 0.125 ms for the plane walk; 8, 12, 24 and all 32 entries in shared
+// memory were 2-7% slower on K1 (8 and 12 2% faster on K2), blocks of 64
+// the same and of 256 1-6% faster (the shared stack is laid out for the
+// library's one block size), a persistent grid that refills idle lanes
+// from a counter 1-6% slower (prof/walk_probe.py forms; PERF.md).
 //
 // Plain C interface, loaded with ctypes (rayfinder_tpu_torch/ops/walk.py).
 // Launches on the caller's stream; returns cudaGetLastError().
 
-#include "traverse.cuh"
+#include "traverse2.cuh"
 
 namespace {
 
-__global__ void closest_kernel(rf::SceneView s, const float* __restrict__ origin,
-                               const float* __restrict__ direction,
-                               const float* __restrict__ t_max, int n,
-                               float* __restrict__ t_out, int* __restrict__ tri_out,
-                               int* __restrict__ visits_out) {
+// Stack entries of a ray kept in shared memory (traverse2.cuh).
+constexpr int kSharedEntries = 16;
+
+__global__ void __launch_bounds__(rf::kBlock) closest_kernel(
+    rf::PackedView s, const float* __restrict__ origin, const float* __restrict__ direction,
+    const float* __restrict__ t_max, int n, float* __restrict__ t_out,
+    int* __restrict__ tri_out, int* __restrict__ visits_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t;
-  int visits;
-  const int tri = rf::closest_hit(s, rf::load3(origin, i), rf::load3(direction, i),
-                                  t_max[i], &t, &visits);
+  int records;
+  const int tri = rf::walk_packed<false, true, kSharedEntries>(
+      s, rf::load3(origin, i), rf::load3(direction, i), t_max[i], &t, &records);
   t_out[i] = t;
   tri_out[i] = tri;
-  visits_out[i] = visits;
+  // The nodes the plane walk visits: the root and both children of a record.
+  visits_out[i] = 1 + 2 * records;
 }
 
-__global__ void any_kernel(rf::SceneView s, const float* __restrict__ origin,
-                           const float* __restrict__ direction,
-                           const float* __restrict__ t_max, int n,
-                           bool* __restrict__ occ_out) {
+__global__ void __launch_bounds__(rf::kBlock) any_kernel(
+    rf::PackedView s, const float* __restrict__ origin, const float* __restrict__ direction,
+    const float* __restrict__ t_max, int n, bool* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  occ_out[i] = rf::any_hit(s, rf::load3(origin, i), rf::load3(direction, i), t_max[i]);
+  float t;
+  occ_out[i] = rf::walk_packed<true, false, kSharedEntries>(
+                   s, rf::load3(origin, i), rf::load3(direction, i), t_max[i], &t) >= 0;
 }
 
 }  // namespace
 
 extern "C" int rf_intersect_closest(const float* aabb_min, const float* aabb_max,
-                                    const int* tri_offset, const int* second_child,
-                                    const int* tri_count, const int* split_axis,
-                                    const float* tri_pos, int num_tris,
+                                    const int* tri_offset, const int* tri_count,
+                                    const int* nodes2, const float* tri_pos4, int num_tris,
                                     const float* origin, const float* direction,
                                     const float* t_max, int n, float* t_out, int* tri_out,
                                     int* visits_out, void* stream) {
-  const rf::SceneView s = rf::make_scene(aabb_min, aabb_max, tri_offset, second_child,
-                                         tri_count, split_axis, tri_pos, num_tris);
+  const rf::PackedView s =
+      rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
   closest_kernel<<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       s, origin, direction, t_max, n, t_out, tri_out, visits_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rf_intersect_any(const float* aabb_min, const float* aabb_max,
-                                const int* tri_offset, const int* second_child,
-                                const int* tri_count, const int* split_axis,
-                                const float* tri_pos, int num_tris,
-                                const float* origin, const float* direction,
-                                const float* t_max, int n, bool* occ_out, void* stream) {
-  const rf::SceneView s = rf::make_scene(aabb_min, aabb_max, tri_offset, second_child,
-                                         tri_count, split_axis, tri_pos, num_tris);
+                                const int* tri_offset, const int* tri_count, const int* nodes2,
+                                const float* tri_pos4, int num_tris, const float* origin,
+                                const float* direction, const float* t_max, int n, bool* occ_out,
+                                void* stream) {
+  const rf::PackedView s =
+      rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
   any_kernel<<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       s, origin, direction, t_max, n, occ_out);
   return static_cast<int>(cudaGetLastError());

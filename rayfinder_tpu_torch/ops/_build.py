@@ -40,10 +40,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Scene arguments of every entry point: the six BVH planes, the triangle
-# positions, the triangle count.
+# Scene arguments of the entry points over the SoA planes (K6, K8): the six
+# BVH planes, the triangle positions, the triangle count.
 _SCENE_ARGTYPES = [_P] * 7 + [_I]
-# ... and of the entry points over the packed walk tables (K3, K4, K5): the
+# ... and of the entry points over the packed walk tables (K1-K5): the
 # root's rows of aabb_min, aabb_max, tri_offset, tri_count, then bvh_nodes2,
 # tri_pos4, the triangle count.
 _PACKED_ARGTYPES = [_P] * 6 + [_I]
@@ -52,15 +52,16 @@ _PACKED_ARGTYPES = [_P] * 6 + [_I]
 _SHADE_ARGTYPES = [_P] * 3
 _ARGTYPES = {
     # ..., origin, direction, t_max, n, t, tri, visits, stream
-    "rf_intersect_closest": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
+    "rf_intersect_closest": _PACKED_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
     # ..., origin, direction, t_max, n, occ, stream
-    "rf_intersect_any": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P],
+    "rf_intersect_any": _PACKED_ARGTYPES + [_P, _P, _P, _I, _P, _P],
     # ..., params, n, 14 lane inputs, 9 outputs, stream
     "rf_trace_regen": _PACKED_ARGTYPES + [_P, _I] + [_P] * 23 + [_P],
     # ..., shade tables, params, n, 14 lane inputs, 11 outputs, the samples'
-    # radiance scratch and the item counter (both null above floor 0), stream
+    # radiance scratch and the item counter (both null above floor 0), the
+    # ray counts, stream
     "rf_trace_regen_shaded": (_PACKED_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25
-                              + [_P, _P] + [_P]),
+                              + [_P, _P] + [_P] + [_P]),
     # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
     "rf_trace_regen_segs": _PACKED_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
     # ..., origin, direction, t_max, n, t, tri, counts, stream

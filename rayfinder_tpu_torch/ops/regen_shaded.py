@@ -18,7 +18,11 @@ the warps of a grid that fills the card take (lane, sample) work items from
 a counter, each item writes its sample's radiance to a scratch, and a second
 small kernel folds them into the lane's radiance in sample order, so every
 output equals the tile rule's bit for bit (the wrapper allocates the
-scratch, B x num_frames x 3 floats, and the zeroed counter). The plain version
+scratch, B x num_frames x 3 floats, and the zeroed counter). That scratch is
+capped at SCRATCH_CAP_BYTES: a call that would need more raises, and the
+loop (render/pathtracer.py) splits a dispatch into runs of
+`samples_per_call` samples. Both kernels count the rays they trace, and the
+call returns the counts with the lane state. The plain version
 `trace_regen_shaded_reference` runs the same rounds in torch over the lanes
 of the tiles still running. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises.
@@ -39,10 +43,24 @@ from ..sky.model import SkyState, sky_radiance_dir
 from . import _build
 from .regen import _params, add_nee, lane_inputs, primaries
 
-__all__ = ["trace_regen_shaded", "trace_regen_shaded_reference", "TILE"]
+__all__ = ["trace_regen_shaded", "trace_regen_shaded_reference", "samples_per_call", "TILE",
+           "SCRATCH_CAP_BYTES"]
 
 # Lanes per tile: the live floor is counted per tile (the CUDA block).
 TILE = 128
+
+# The most that one floor-0 call's radiance scratch may take: 268,435,456
+# bytes (256 MiB, 0.3% of the memory of an NVIDIA H100 80GB HBM3). A
+# (lane, sample) item takes 12 bytes of it.
+SCRATCH_CAP_BYTES = 268_435_456
+_ITEM_BYTES = 12
+
+
+def samples_per_call(lanes: int) -> int:
+    """Samples per pixel that one floor-0 call over `lanes` lanes may take
+    with its scratch inside SCRATCH_CAP_BYTES (at least 1: a call of more
+    lanes than the cap holds at one sample raises)."""
+    return max(1, SCRATCH_CAP_BYTES // (_ITEM_BYTES * max(lanes, 1)))
 
 
 def trace_regen_shaded(
@@ -60,7 +78,9 @@ def trace_regen_shaded(
     per-tile floor. Returns the whole lane state (sample, bounce, flag,
     origin, direction, thr, srad, lrad, shadow_o, shadow_d, contrib): lanes
     still live carry their pending NEE sample (flag 1 or 2) to the next
-    call."""
+    call; and, last, the rays this call traced, (2,) int64 [closest,
+    shadow]: one per closest segment, one per surface hit (its NEE shadow
+    ray, counted at the hit)."""
     if u.device.type == "cpu":
         return trace_regen_shaded_reference(
             scene, camera, sky, u, v_tex, noise_base, inv_dims, frame_base, spp,
@@ -77,6 +97,7 @@ def trace_regen_shaded(
         *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)),
         *(torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(8)),
     )
+    rays = torch.zeros(2, dtype=torch.int64, device=dev)
     if n:
         params = _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
                          num_bounces=num_bounces, live_floor=live_floor)
@@ -84,6 +105,11 @@ def trace_regen_shaded(
         # Floor 0: the work items' radiance scratch and their counter.
         scratch = None, None
         if live_floor <= 0:
+            if _ITEM_BYTES * n * num_frames > SCRATCH_CAP_BYTES:
+                raise ValueError(
+                    f"a floor-0 call of {n} lanes x {num_frames} samples needs a scratch of "
+                    f"{_ITEM_BYTES * n * num_frames} bytes, over the cap of "
+                    f"{SCRATCH_CAP_BYTES}: at most {samples_per_call(n)} samples per call")
             scratch = (torch.empty(n, num_frames, 3, dtype=torch.float32, device=dev),
                        torch.zeros(1, dtype=torch.int64, device=dev))
         lib = _build.library()
@@ -93,11 +119,11 @@ def trace_regen_shaded(
                 *(tensor.data_ptr() for tensor, *_ in inputs),
                 *(out.data_ptr() for out in outputs),
                 *(t if t is None else t.data_ptr() for t in scratch),
-                _build.stream_of(dev),
+                rays.data_ptr(), _build.stream_of(dev),
             )
         _build.raise_on_error(err, "rf_trace_regen_shaded")
         trace_regen_shaded.launches += 1
-    return outputs
+    return (*outputs, rays)
 
 
 # Kernel launch count (a run resets and reads it to show which kernels it
@@ -126,6 +152,7 @@ def trace_regen_shaded_reference(
     solar = torch.as_tensor(sky.solar_radiances, device=dev)
     tile = torch.arange(n, device=dev) // TILE
     num_tiles = -(-n // TILE)
+    rays = torch.zeros(2, dtype=torch.int64, device=dev)  # [closest, shadow]
 
     def running():
         """Lanes of the tiles with more than live_floor live lanes."""
@@ -162,6 +189,8 @@ def trace_regen_shaded_reference(
         hit, _, tri_f, _ = intersect_closest(scene, s["origin"][flying], s["direction"][flying],
                                              t_max)
         tri[flying] = tri_f
+        rays[0] += flying.numel()
+        rays[1] += hit.sum()
         miss = flying[~hit]
         srad[miss] = srad[miss] + s["thr"][miss] * sky_radiance_dir(sky, s["direction"][miss])
         lrad[miss] = lrad[miss] + srad[miss]
@@ -184,4 +213,4 @@ def trace_regen_shaded_reference(
         idx = running()
     return (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
             st["thr"], st["srad"], st["lrad"], st["shadow_o"], st["shadow_d"],
-            st["contrib"])
+            st["contrib"], rays)

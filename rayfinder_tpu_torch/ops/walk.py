@@ -3,8 +3,13 @@ plain versions.
 
 Counterpart of `rayfinder_tpu.ops.pallas_walk` (pallas_intersect_closest,
 pallas_intersect_any). The kernels (csrc/walk.cu) run one thread per ray
-over the device functions of csrc/traverse.cuh; the plain versions are the
-torch walk of render/traverse.py, which the kernels match bit for bit.
+over the scene's packed walk tables (`bvh_nodes2`, `tri_pos4`) with the walk
+of csrc/traverse2.cuh, which the path kernels share; a scene without the
+tables raises. The plain versions are the torch walk of the same tables by
+the same rule (render/traverse.py intersect_packed), which the kernels match
+bit for bit; both give the t, tri, occlusion and, for a closest walk, the
+nodes_visited of the plane walk (render/traverse.py intersect_closest,
+intersect_any).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.
@@ -15,8 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..render.scene import DeviceScene
-from ..render.traverse import intersect_any as intersect_any_reference
-from ..render.traverse import intersect_closest as intersect_closest_reference
+from ..render.traverse import intersect_packed
 from . import _build
 
 __all__ = [
@@ -25,6 +29,19 @@ __all__ = [
     "intersect_closest_reference",
     "intersect_any_reference",
 ]
+
+
+def intersect_closest_reference(scene: DeviceScene, origin, direction, t_max):
+    """Plain torch version of `intersect_closest_kernel`, on any device:
+    (hit, t, tri, nodes_visited), the last being the walk's slab tests,
+    which are the nodes the plane walk visits."""
+    return intersect_packed(scene, origin, direction, t_max)
+
+
+def intersect_any_reference(scene: DeviceScene, origin, direction, t_max):
+    """Plain torch version of `intersect_any_kernel`, on any device:
+    occluded (B,) bool."""
+    return intersect_packed(scene, origin, direction, t_max, any_hit=True)[0]
 
 
 def _ray_args(origin, direction, t_max):
@@ -52,7 +69,7 @@ def intersect_closest_kernel(scene: DeviceScene, origin, direction, t_max):
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_intersect_closest(
-                *_build.scene_args(scene, dev), origin.data_ptr(),
+                *_build.packed_args(scene, dev), origin.data_ptr(),
                 direction.data_ptr(), t_max.data_ptr(), n, t.data_ptr(),
                 tri.data_ptr(), visits.data_ptr(), _build.stream_of(dev),
             )
@@ -72,7 +89,7 @@ def intersect_any_kernel(scene: DeviceScene, origin, direction, t_max):
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_intersect_any(
-                *_build.scene_args(scene, dev), origin.data_ptr(),
+                *_build.packed_args(scene, dev), origin.data_ptr(),
                 direction.data_ptr(), t_max.data_ptr(), n, occ.data_ptr(),
                 _build.stream_of(dev),
             )

@@ -12,15 +12,18 @@ src/pt/reference_path_tracer.wgsl:180-234):
   scatter; a miss adds the Hosek-Wilkie sky (without the sun, which arrives
   through NEE) and ends the sample.
 
-Each lane owns one pixel and traces its samples back to back. The split
-route (the default) makes, per outer iteration, one call of the persistent
-path kernel K3 (ops/regen.py), which resolves the pending NEE, consumes every
-miss segment on the card and stops each lane at its next surface hit, and
-one shade step in torch (render/shade.py) that prepares the NEE sample and
-the scatter ray. As lanes finish, the busy ones are compacted into narrower
-batches (phases). The in-kernel route (inkernel=True) shades inside the
-kernel K4 (ops/regen_shaded.py) after a split first phase; the segs route
-(segs=K) keeps K paths per lane in the kernel K5 (ops/regen_segs.py).
+Each lane owns one pixel and traces its samples back to back. The default
+route runs a whole dispatch inside the kernel K4 (ops/regen_shaded.py), which
+shades in place: one call, or one call per run of samples where the
+kernel's scratch would pass its cap. The split route (inkernel=False)
+makes, per outer iteration, one call of the persistent path kernel K3
+(ops/regen.py), which resolves the pending NEE, consumes every miss segment
+on the card and stops each lane at its next surface hit, and one shade step
+in torch (render/shade.py) that prepares the NEE sample and the scatter ray.
+As lanes finish, the busy ones are compacted into narrower batches (phases).
+The hybrid in-kernel route (inkernel=True with a compact_floor below the
+batch) runs K4 per phase after a split first phase; the segs route (segs=K)
+keeps K paths per lane in the kernel K5 (ops/regen_segs.py).
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ import torch
 
 from ..ops.regen import trace_regen, trace_regen_reference
 from ..ops.regen_segs import SEGS, trace_regen_segs, trace_regen_segs_reference
-from ..ops.regen_shaded import TILE, trace_regen_shaded, trace_regen_shaded_reference
+from ..ops.regen_shaded import (
+    TILE, samples_per_call, trace_regen_shaded, trace_regen_shaded_reference,
+)
 from ..sky.model import SkyState
 from .camera import Camera, primary_ray
 from .intersect import T_MAX
@@ -140,15 +145,17 @@ class _Dispatch:
                   shadow_d=shadow_d, contrib=contrib)
         return lrad
 
-    def shaded_call(self, st, lanes, lrad, live_floor):
-        """One K4 call down to `live_floor` live lanes per 128-lane tile."""
+    def shaded_call(self, st, lanes, lrad, live_floor, rays):
+        """One K4 call down to `live_floor` live lanes per 128-lane tile; the
+        rays it traced are added to `rays` ([closest, shadow])."""
         out = self.kernels.shaded(
             *self.pixel_args(lanes), self.num_bounces, live_floor, T_MAX,
             st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
             st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
         )
         (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"], st["thr"],
-         st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"]) = out
+         st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"], traced) = out
+        rays.add_(traced)
         return lrad
 
     def segs_step(self, st, lanes, lrad):
@@ -276,30 +283,57 @@ def _accumulate_regen_fused(d: _Dispatch, accum, lanes, floor, count_rays):
     return _with_counts(out, counts, batch * d.nf) if count_rays else out
 
 
-def _accumulate_regen_inkernel(d: _Dispatch, accum, lanes, floor):
-    """The in-kernel route (JAX _accumulate_regen_inkernel): phase 0 is the
-    split route (K3 + torch shade) while more lanes than the first compacted
-    phase are busy; then the busy lanes compact, and one K4 call per further
-    phase runs each 128-lane tile down to a per-tile live floor, followed by
-    a flush and a compaction; the last K4 call runs to floor 0. A batch
-    with no compacted phase takes a single K4 call at floor 0.
+def _accumulate_regen_inkernel(d: _Dispatch, accum, lanes, floor, count_rays):
+    """The in-kernel route. With no compacted phase (a floor of the batch:
+    the default) the whole dispatch runs inside K4 at floor 0
+    (_shaded_runs). Otherwise the hybrid (JAX _accumulate_regen_inkernel):
+    phase 0 is the split route (K3 + torch shade) while more lanes than the
+    first compacted phase are busy; then the busy lanes compact, and one K4
+    call per further phase runs each 128-lane tile down to a per-tile live
+    floor, followed by a flush and a compaction; the last K4 call runs to
+    floor 0. Returns the new accumulation buffer and, with count_rays, the
+    exact [closest, shadow] ray counts: K4's own, plus phase 0's.
 
     The per-tile floor is nxt // (tiles of the current phase), so the
     survivors always fit the next phase; the JAX loop divides by cur // 128,
     the same wherever the phase is a multiple of 128 lanes or narrower than
     one tile."""
     batch = accum.shape[0]
-    st = _initial_state(d, lanes, batch, accum.device)
     sizes = _phase_sizes(batch, floor)
+    rays = torch.zeros(2, dtype=torch.int64, device=accum.device)
     if len(sizes) < 2:
-        return d.shaded_call(st, lanes, accum.clone(), 0)
-    lrad_full, pix, lrad = _split_phase0(d, st, lanes, accum, sizes[1])
+        out = _shaded_runs(d, lanes, accum.clone(), rays)
+        return (out, rays) if count_rays else out
+    st = _initial_state(d, lanes, batch, accum.device)
+    lrad_full, pix, lrad = _split_phase0(d, st, lanes, accum, sizes[1],
+                                         rays if count_rays else None)
     for cur, nxt in zip(sizes[1:], sizes[2:]):
-        lrad = d.shaded_call(st, lanes, lrad, _tile_floor(cur, nxt))
+        lrad = d.shaded_call(st, lanes, lrad, _tile_floor(cur, nxt), rays)
         lrad_full = _flush(lrad_full, pix, lrad, batch)
         pix, lrad = _compact_state(d, st, lanes, nxt, pix, batch)
-    lrad = d.shaded_call(st, lanes, lrad, 0)
-    return _flush(lrad_full, pix, lrad, batch)
+    lrad = d.shaded_call(st, lanes, lrad, 0, rays)
+    out = _flush(lrad_full, pix, lrad, batch)
+    return (out, rays) if count_rays else out
+
+
+def _shaded_runs(d: _Dispatch, lanes, lrad, rays):
+    """A whole dispatch inside K4 at floor 0, every lane from its first
+    sample: one call, or one call per run of samples_per_call(lanes) samples
+    where one call's scratch would pass its cap. K4 sizes its scratch by the
+    call's num_frames and numbers a call's samples from 0, so a run is a
+    call of its own length whose frame_base is moved to the run's first
+    sample (the noise of a sample depends on frame_base + sample alone),
+    from a fresh initial state. lrad is carried from call to call: K4 adds
+    the samples' radiance to it in sample order, so the sums are those of
+    one call, bit for bit. Adds the rays traced to `rays`; returns lrad."""
+    batch = lrad.shape[0]
+    per_call = samples_per_call(batch)
+    for first in range(0, d.nf, per_call):
+        run = dataclasses.replace(d, frame_base=d.frame_base + first,
+                                  nf=min(per_call, d.nf - first))
+        st = _initial_state(run, lanes, batch, lrad.device)
+        lrad = run.shaded_call(st, lanes, lrad, 0, rays)
+    return lrad
 
 
 def _tile_floor(cur: int, nxt: int) -> int:
@@ -316,13 +350,26 @@ def _compact_state(d: _Dispatch, st, lanes, size, pix, batch):
     return pix, torch.zeros(size, 3, device=valid.device)
 
 
-def _split_phase0(d: _Dispatch, st, lanes, accum, size):
-    """Phase 0 of the in-kernel route: split steps (lane == pixel, straight
-    into accum) until at most `size` lanes are busy; then the busy lanes
-    compact into `size` rows. Returns (lrad_full, pix, lrad)."""
+def _split_phase0(d: _Dispatch, st, lanes, accum, size, rays=None):
+    """Phase 0 of the hybrid in-kernel route: split steps (lane == pixel,
+    straight into accum) until at most `size` lanes are busy; then the busy
+    lanes compact into `size` rows. Returns (lrad_full, pix, lrad). The rays
+    of the phase are added to `rays` ([closest, shadow]) where given: its
+    hits H, each with a shadow ray (counted here, though K4 may resolve the
+    last ones), and its misses: the samples finished so far (the lanes'
+    sample indices) less those that ended at a hit (the D of _add_counts,
+    less the flag == 2 lanes whose termination is still pending)."""
     lrad = accum.clone()
+    counts = torch.zeros(2, dtype=torch.int64, device=accum.device)
     while int((st["sample"] < d.nf).sum()) > size:
         lrad = d.split_step(st, lanes, lrad)
+        if rays is not None:
+            _add_counts(counts, st["flag"])
+    if rays is not None:
+        hits, depth = counts
+        pending = ((st["sample"] < d.nf) & (st["flag"] == 2)).sum()
+        misses = st["sample"].sum(dtype=torch.int64) - (depth - pending)
+        rays.add_(torch.stack([hits + misses, hits]))
     pix, lrad_new = _compact_state(d, st, lanes, size, None, accum.shape[0])
     return lrad, pix, lrad_new
 
@@ -393,7 +440,7 @@ def accumulate_samples_regen(
     engine: str = "kernel",
     compact_floor: int | None = None,
     count_rays: bool = False,
-    inkernel: bool = False,
+    inkernel: bool | None = None,
     segs: int = 1,
 ):
     """Add samples frame_base .. frame_base + num_frames - 1 of every pixel
@@ -402,37 +449,45 @@ def accumulate_samples_regen(
 
     blue_noise_tile: (128, 128, 2) f32 tensor on the scene's device. spp is
     the total sample count of the image (it sets the R2 noise period).
-    compact_floor: the narrowest compaction phase (default 4096 lanes).
     count_rays=True also returns the exact int64 [closest, shadow] ray
-    counts: one closest segment per traced segment plus one NEE shadow ray
-    per surface hit, as the reference's megakernel traces them
-    (reference_path_tracer.wgsl:180-234).
+    counts, on every route: one closest segment per traced segment plus one
+    NEE shadow ray per surface hit, as the reference's megakernel traces
+    them (reference_path_tracer.wgsl:180-234).
 
-    Routes, all with the same per-sample arithmetic:
-    - the split route (default): the path kernel K3 + a torch shade step
-      per iteration;
-    - inkernel=True: after a split first phase, the kernel K4 shades in
-      place and runs each 128-lane tile down to a live floor (the JAX
-      RAYFINDER_INKERNEL=1 hybrid). It cannot count rays (whole paths end
-      inside the kernel): with count_rays it raises;
+    Routes, all with the same per-sample arithmetic, the default first:
+    - no route keyword (inkernel=None, segs=1): the whole dispatch inside
+      the kernel K4, which shades in place: one call per dispatch, or one
+      per run of samples where K4's scratch would pass its cap
+      (ops/regen_shaded.py SCRATCH_CAP_BYTES). It is inkernel=True with a
+      compact_floor of the batch;
+    - inkernel=True with a compact_floor below a tenth of the batch (4,096
+      is the other routes' default): the hybrid. After a split first phase,
+      K4 runs each 128-lane tile of each compacted phase down to a live
+      floor (the JAX RAYFINDER_INKERNEL=1 route);
+    - inkernel=False: the split route, the path kernel K3 + a torch shade
+      step per iteration;
     - segs=K (2 to 4): the kernel K5 keeps K paths per lane and returns K
       hit segments per call (the JAX RAYFINDER_SEGS=K route).
-    The JAX package gates the last two to small scenes (VMEM tables, flat
-    sweeps); the CUDA kernels read triangle attributes and texels from
-    global memory and walk the BVH per thread, so they take any scene.
+    compact_floor is the narrowest compaction phase: by default the batch
+    on the in-kernel route (no compaction) and 4,096 lanes on the others.
+    The JAX package gates the K4 and K5 routes to small scenes (VMEM
+    tables, flat sweeps); the CUDA kernels read triangle attributes and
+    texels from global memory and walk the BVH per thread, so they take any
+    scene.
 
     engine="kernel" drives the loop through the CUDA path kernels;
-    engine="plain" through their plain torch versions (any device)."""
+    engine="plain" through their plain torch versions (any device), by the
+    same routes."""
     if engine not in _ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}: the port has {sorted(_ENGINES)}"
         )
     if segs != 1 and segs not in SEGS:
         raise ValueError(f"segs={segs}: 1 (off) or one of {SEGS}")
-    if inkernel and count_rays:
-        raise ValueError("inkernel=True cannot count rays: paths end inside the kernel")
     if inkernel and segs != 1:
         raise ValueError("inkernel=True and segs > 1 are two different routes")
+    if inkernel is None:
+        inkernel = segs == 1
     dev = accum.device
     ys_np, xs_np, _ = block_order(width, height)
     ys = torch.from_numpy(ys_np).to(dev)
@@ -452,9 +507,11 @@ def accumulate_samples_regen(
         solar=torch.as_tensor(sky.solar_radiances, device=dev),
     )
     lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
-    floor = _COMPACT_FLOOR if compact_floor is None else compact_floor
+    floor = compact_floor
+    if floor is None:
+        floor = accum.shape[0] if inkernel else _COMPACT_FLOOR
     if inkernel:
-        return _accumulate_regen_inkernel(d, accum, lanes, floor)
+        return _accumulate_regen_inkernel(d, accum, lanes, floor, count_rays)
     if segs > 1:
         return _accumulate_regen_fused_segs(d, accum, lanes, floor, count_rays, segs)
     return _accumulate_regen_fused(d, accum, lanes, floor, count_rays)
@@ -471,13 +528,13 @@ def render_image(
     exposure: float = 1.0,
     engine: str = "kernel",
     samples_per_dispatch: int = 32,
-    inkernel: bool = False,
+    inkernel: bool | None = None,
     segs: int = 1,
 ) -> np.ndarray:
     """Render a full image on the scene's device: spp progressive samples,
     running-mean estimator, ACES tonemap + gamma (wgsl:59-63). Returns
     (H, W, 3) float32 numpy in [0, 1]. inkernel and segs choose the route
-    (accumulate_samples_regen)."""
+    (accumulate_samples_regen; by default each dispatch runs inside K4)."""
     dev = scene.device
     tile = torch.from_numpy(blue_noise_tile()).to(dev)
     accum = torch.zeros(height * width, 3, device=dev)

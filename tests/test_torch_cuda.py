@@ -54,6 +54,69 @@ def test_walk_kernels_match_plain_walk_exactly(dev, scene8, name):
                        walk.intersect_any_reference(scene8, o, d, T_MAX))
 
 
+@pytest.mark.parametrize("scene_name", ["courtyard8", "deep", "one_triangle"])
+def test_walk_kernels_equal_the_plane_walk(dev, scene8, scene_name):
+    """K1 and K2 walk the packed tables; t, tri, nodes visited and occlusion
+    must be the plane walk's bit for bit: against the plane-walk kernel K6
+    (t, tri, nodes), the plain plane walk (occlusion), and their own plain
+    version, to T_MAX and to per-ray bounds; on the courtyard, on a BVH
+    deeper than the 32-entry stack and on a scene whose root is a leaf."""
+    from torch_deep_scene import deep_rays, deep_scene
+
+    from rayfinder_tpu_torch.ops import counted, walk
+    from rayfinder_tpu_torch.render import traverse
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene import FlattenedScene
+
+    if scene_name == "courtyard8":
+        scene, (o, d) = scene8, _probe_rays(dev)
+    else:
+        flat, bvh = deep_scene()
+        if scene_name == "one_triangle":
+            flat, bvh = FlattenedScene(*(a[:1] for a in (
+                flat.positions, flat.normals, flat.tex_coords, flat.texture_indices))), None
+        scene = build_device_scene(flat, bvh=bvh, device=dev)
+        o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(4096, seed=9))
+    bound = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 12.0, o.shape[0])
+                             .astype(np.float32)).to(dev)
+    for t_max in (T_MAX, bound):
+        before = walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches
+        hit, t, tri, visits = walk.intersect_closest_kernel(scene, o, d, t_max)
+        occ = walk.intersect_any_kernel(scene, o, d, t_max)
+        assert (walk.intersect_closest_kernel.launches,
+                walk.intersect_any_kernel.launches) == (before[0] + 1, before[1] + 1)
+        assert bool(hit.any())
+        _, t6, tri6, counts6 = counted.intersect_closest_counted(scene, o, d, t_max)
+        assert torch.equal(t, t6) and torch.equal(tri, tri6)
+        assert torch.equal(visits, counts6[:, 0])
+        assert torch.equal(occ, traverse.intersect_any(scene, o, d, t_max))
+        for a, b in zip((hit, t, tri, visits),
+                        walk.intersect_closest_reference(scene, o, d, t_max)):
+            assert torch.equal(a, b)
+        assert torch.equal(occ, walk.intersect_any_reference(scene, o, d, t_max))
+
+
+def test_walk_kernels_need_the_packed_tables(dev, scene8):
+    """K1 and K2 read only the packed walk tables: a scene without them
+    raises, and nothing falls back to the plane walk."""
+    import dataclasses
+
+    from rayfinder_tpu_torch.ops import walk
+
+    o, d = _probe_rays(dev, 64)
+    for broken, error in ((dict(bvh_nodes2=scene8.bvh_nodes2[:0]), ValueError),
+                          (dict(tri_pos4=None), TypeError)):
+        scene = dataclasses.replace(scene8, **broken)
+        before = walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches
+        with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+            walk.intersect_closest_kernel(scene, o, d, 1e4)
+        with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+            walk.intersect_any_kernel(scene, o, d, 1e4)
+        assert (walk.intersect_closest_kernel.launches,
+                walk.intersect_any_kernel.launches) == before
+
+
 def test_walk_kernel_rejects_bad_input(dev, scene8):
     from rayfinder_tpu_torch.ops import walk
 
@@ -83,7 +146,8 @@ def test_render_kernel_matches_plain_and_golden(dev, scene8):
         before = trace_regen.launches
         accum, rays = accumulate_samples_regen(
             scene8, sky, cam, tile, 0, torch.zeros(w * h, 3, device=dev), width=w,
-            height=h, num_bounces=4, spp=spp, num_frames=spp, engine=engine, count_rays=True)
+            height=h, num_bounces=4, spp=spp, num_frames=spp, engine=engine, count_rays=True,
+            inkernel=False)
         assert (trace_regen.launches > before) == (engine == "kernel")
         images[engine] = tonemap(unswizzle(accum, w, h) / float(spp), 0.25).reshape(h, w, 3).cpu().numpy()
         counts[engine] = rays.cpu().numpy()
@@ -102,11 +166,12 @@ def textured4(dev):
 
 
 @pytest.mark.parametrize("route", [dict(inkernel=True), dict(inkernel=True, compact_floor=16),
-                                   dict(segs=2, count_rays=True), dict(segs=4, count_rays=True)])
+                                   dict(segs=2), dict(segs=4)])
 def test_route_kernels_match_plain(dev, textured4, route):
-    """K4 (inkernel) and K5 (segs) through their routes on the textured
-    courtyard: kernel against plain on the card, and against the split
-    route."""
+    """K4 (inkernel: one call, and the hybrid) and K5 (segs) through their
+    routes on the textured courtyard: kernel against plain on the card, and
+    against the split route, radiance and ray counts (K4 counts its
+    own)."""
     from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
     from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
     from rayfinder_tpu_torch.render.camera import create_camera
@@ -120,20 +185,87 @@ def test_route_kernels_match_plain(dev, textured4, route):
     tile = torch.from_numpy(blue_noise_tile()).to(dev)
 
     def run(engine, **kw):
-        out = accumulate_samples_regen(
+        return accumulate_samples_regen(
             textured4, sky, cam, tile, 0, torch.zeros(w * h, 3, device=dev), width=w,
-            height=h, num_bounces=4, spp=spp, num_frames=spp, engine=engine, **kw)
-        return out if isinstance(out, tuple) else (out, None)
+            height=h, num_bounces=4, spp=spp, num_frames=spp, engine=engine, count_rays=True,
+            **kw)
 
     launches = trace_regen_shaded.launches + trace_regen_segs.launches
     kernel, k_rays = run("kernel", **route)
     assert trace_regen_shaded.launches + trace_regen_segs.launches > launches
     plain, p_rays = run("plain", **route)
-    split, s_rays = run("plain", count_rays=True)
+    split, s_rays = run("plain", inkernel=False)
     torch.testing.assert_close(kernel, plain, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kernel, split, rtol=1e-5, atol=1e-5)
-    if k_rays is not None:
-        assert torch.equal(k_rays, p_rays) and torch.equal(k_rays, s_rays)
+    assert torch.equal(k_rays, p_rays) and torch.equal(k_rays, s_rays)
+
+
+def _regen(scene, dev, w, h, spp, engine="kernel", start=None, frame_base=0, **kw):
+    """One dispatch of the bench view through accumulate_samples_regen, with
+    exact ray counts."""
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    cam = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+    start = torch.zeros(w * h, 3, device=dev) if start is None else start
+    return accumulate_samples_regen(
+        scene, sky, cam, tile, frame_base, start, width=w, height=h, num_bounces=4,
+        spp=spp + frame_base, num_frames=spp, engine=engine, count_rays=True, **kw)
+
+
+def test_default_route_is_one_shaded_call_with_the_split_counts(dev, scene8):
+    """With no route keyword a dispatch is one K4 call and no K3 or K5
+    call; K4's ray counters give the split route's counts, as does the
+    hybrid (phase 0's split counts plus K4's)."""
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+    from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+
+    w, h, spp = 128, 96, 8
+    before = trace_regen.launches, trace_regen_shaded.launches, trace_regen_segs.launches
+    accum, rays = _regen(scene8, dev, w, h, spp)
+    assert (trace_regen.launches, trace_regen_shaded.launches,
+            trace_regen_segs.launches) == (before[0], before[1] + 1, before[2])
+    split, split_rays = _regen(scene8, dev, w, h, spp, inkernel=False)
+    assert trace_regen.launches > before[0]
+    assert rays.dtype == torch.int64 and torch.equal(rays, split_rays)
+    torch.testing.assert_close(accum, split, rtol=1e-5, atol=1e-5)
+    for floor in (1024, 128):
+        hybrid, hybrid_rays = _regen(scene8, dev, w, h, spp, inkernel=True, compact_floor=floor)
+        assert torch.equal(hybrid_rays, split_rays)
+        torch.testing.assert_close(hybrid, split, rtol=1e-5, atol=1e-5)
+    golden = np.load(GOLDENS / "courtyard_untextured_128x96_8spp.npz")
+    assert rays.tolist() == golden["rays"].tolist()
+
+
+def test_capped_dispatch_equals_uncapped(dev, scene8, monkeypatch):
+    """A dispatch whose K4 scratch would pass the cap runs in runs of
+    samples and equals the uncapped dispatch bit for bit; a single call over
+    the cap raises and launches nothing."""
+    from rayfinder_tpu_torch.ops import regen_shaded
+    from rayfinder_tpu_torch.render import pathtracer as pt
+
+    w, h, spp = 64, 48, 8
+    start = torch.rand(w * h, 3, device=dev)
+    want, want_rays = _regen(scene8, dev, w, h, spp, start=start, frame_base=2)
+    monkeypatch.setattr(regen_shaded, "SCRATCH_CAP_BYTES", 12 * w * h * 3)
+    before = regen_shaded.trace_regen_shaded.launches
+    got, rays = _regen(scene8, dev, w, h, spp, start=start, frame_base=2)
+    assert regen_shaded.trace_regen_shaded.launches == before + 3  # 3 + 3 + 2 samples
+    assert torch.equal(got, want) and torch.equal(rays, want_rays)
+
+    disp, lanes = _path_state(scene8, dev, w, h, spp)
+    st = pt._initial_state(disp, lanes, w * h, dev)
+    before = regen_shaded.trace_regen_shaded.launches
+    with pytest.raises(ValueError, match="over the cap"):
+        regen_shaded.trace_regen_shaded(*_shaded_args(disp, lanes, st, start, 0))
+    assert regen_shaded.trace_regen_shaded.launches == before
+    # Above floor 0 there is no scratch, and no cap.
+    regen_shaded.trace_regen_shaded(*_shaded_args(disp, lanes, st, start, 8))
 
 
 def _probe_rays(dev, n=4096, seed=21):

@@ -1,6 +1,7 @@
-"""The packed walk tables of the path kernels K3 and K5 (`bvh_nodes2`,
-`tri_pos4`, render/scene.py) and the plain version of their walk
-(render/traverse.py intersect_packed, the rule of csrc/traverse2.cuh).
+"""The packed walk tables of the ray queries K1 and K2 and the path kernels
+K3, K4 and K5 (`bvh_nodes2`, `tri_pos4`, render/scene.py) and the plain
+version of their walk (render/traverse.py intersect_packed, the rule of
+csrc/traverse2.cuh; ops/walk.py's plain versions are this walk).
 
 The tables must decode bit for bit to the SoA planes they are built from,
 whichever entry point built the scene, and the packed walk must give the
@@ -163,6 +164,37 @@ def test_packed_walk_equals_plane_walk(case):
     if case == "deep":
         assert bvh_depth(s.bvh_tri_count, s.bvh_second_child) > STACK_DEPTH
         assert int(visits.max()) > 2 * STACK_DEPTH + 1  # some rays overflowed the stack
+
+
+@pytest.mark.parametrize("case", ["grouped_courtyard8", "flat_courtyard8", "deep",
+                                  "one_triangle"])
+def test_ray_query_plain_versions_equal_plane_walk(case):
+    """The plain versions beside the ray-query kernels K1 and K2
+    (ops/walk.py, the packed walk) give the plane walk's t, tri,
+    nodes_visited and occlusion on every ray, and the wrappers run them on
+    CPU tensors without a launch."""
+    from rayfinder_tpu_torch.ops import walk
+
+    name, o, d = _rays(case)
+    s = _built(name)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    bound = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 12.0, o.shape[0])
+                             .astype(np.float32))
+    before = walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches
+    for t_max in (T_MAX, bound):
+        want = intersect_closest(s, o, d, t_max)
+        want_occ = intersect_any(s, o, d, t_max)
+        for closest, any_hit in ((walk.intersect_closest_reference, walk.intersect_any_reference),
+                                 (walk.intersect_closest_kernel, walk.intersect_any_kernel)):
+            for got, w in zip(closest(s, o, d, t_max), want):  # hit, t, tri, nodes_visited
+                assert got.dtype == w.dtype and torch.equal(got, w)
+            occ = any_hit(s, o, d, t_max)
+            assert occ.dtype == torch.bool and torch.equal(occ, want_occ)
+    assert (walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches) == before
+    if case == "flat_courtyard8":  # both walks land one ulp beyond the golden's triangle
+        assert int(walk.intersect_closest_reference(s, o, d, T_MAX)[2][6]) == 9748
+    if case == "deep":
+        assert int(want[3].max()) > 2 * STACK_DEPTH + 1  # some rays overflowed the stack
 
 
 def test_packed_walk_empty_batch():

@@ -1,5 +1,6 @@
 """The port's path kernel (ops/regen.py, plain version of csrc/regen.cu) and
-its fused regeneration loop (render/pathtracer.py) against the JAX package.
+the split route of its fused regeneration loop (render/pathtracer.py,
+inkernel=False: K3 + a torch shade step) against the JAX package.
 
 Budgets, as in tests/test_pallas_regen.py: rtol 2e-4 / atol 1e-5. The sky is
 evaluated with acos (the TPU kernel uses a polynomial, |err| <= 2e-8 rad),
@@ -164,11 +165,12 @@ def _jax_regen(jscene, num_bounces, **kw):
 
 
 def _port_regen(scene, num_bounces, frame_base=0, accum=None, num_frames=SPP, **kw):
+    """The split route, by its keyword."""
     accum = torch.zeros(W * H, 3) if accum is None else accum
     out, rays = accumulate_samples_regen(
         scene, sky_state_from_ui(*SKY), create_camera(*CAM), torch.from_numpy(blue_noise_tile()),
         frame_base, accum, width=W, height=H, num_bounces=num_bounces, spp=SPP,
-        num_frames=num_frames, count_rays=True, **kw)
+        num_frames=num_frames, count_rays=True, inkernel=False, **kw)
     return out, rays
 
 

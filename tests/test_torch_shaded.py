@@ -1,6 +1,8 @@
 """The port's in-kernel-shaded path kernel K4 (ops/regen_shaded.py, plain
 version of csrc/regen_shaded.cu) and its route through the fused loop
-(accumulate_samples_regen(inkernel=True)) against the JAX package.
+(accumulate_samples_regen(inkernel=True): one K4 call, or the hybrid below a
+compact_floor) against the JAX package. tests/test_torch_default_route.py
+holds the same route as the loop's default.
 
 Budgets: against JAX, rtol 2e-4 / atol 1e-5 as in tests/test_torch_regen.py
 (XLA on the CPU contracts products into FMAs; the port rounds each one), and
@@ -271,13 +273,15 @@ def test_route_matches_split_route(scenes, compact_floor):
     """In-kernel and split routes, both plain: the same per-sample
     arithmetic; only the phase-end flushes regroup the sums."""
     port, _ = scenes
-    split, _ = _port_regen(port, count_rays=True, compact_floor=compact_floor)
-    inker = _port_regen(port, inkernel=True, compact_floor=compact_floor)
+    split, split_rays = _port_regen(port, inkernel=False, count_rays=True,
+                                    compact_floor=compact_floor)
+    inker, rays = _port_regen(port, inkernel=True, count_rays=True, compact_floor=compact_floor)
     np.testing.assert_allclose(inker.numpy(), split.numpy(), rtol=1e-5, atol=1e-6)
+    assert torch.equal(rays, split_rays)  # K4 counts its own rays
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(inkernel=True, count_rays=True), "cannot count rays"),
+    (dict(segs=5), "1 .off. or one of"),
     (dict(inkernel=True, segs=2), "different routes"),
 ])
 def test_bad_route_combinations_raise(scenes, kw, match):
