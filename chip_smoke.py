@@ -13,9 +13,9 @@ kernels from csrc/, then:
    packed tables, on the 256 rays of each *_courtyard8.npz golden and on
    262,144 camera and random rays over the 254K-triangle courtyard, and
    holds them to their plain torch versions on the same card exactly (t at
-   atol 0, tri, nodes visited, occlusion); the counted plane walk (K6) on
-   the same rays must equal K1 (t, tri, nodes) and gives its work, the
-   plain plane walk must equal K2;
+   atol 0, tri, nodes visited, occlusion); the counted walk (K6) on the
+   same rays must equal K1 (t, tri, nodes) and gives its work, the plain
+   plane walk must equal K2;
 3. renders the untextured courtyard_scene(8) at 128x96, 8 spp, 4 bounces
    through the default route (one K4 call per dispatch) and its plain
    version, the split route (K3) and its plain version, and the hybrid
@@ -39,7 +39,10 @@ kernels from csrc/, then:
    counts to the split route's, and times three more dispatches of each
    route in turns; runs one capped dispatch (a sample count whose K4
    scratch would pass the cap: two K4 calls) against the same dispatch with
-   the cap lifted, bit for bit; 5b does the route comparison again on the
+   the cap lifted, bit for bit, and one 256-sample dispatch of the hybrid
+   whose last K4 call would pass the cap (compact_floor 131,072: two chunks
+   of lanes) against the cap lifted, bit for bit, with the split route's
+   ray counts; 5b does the route comparison again on the
    textured courtyard(26) at 512x512; then one instrumented dispatch of
    each route (split, segs=2, hybrid, one call) gives its path kernel's
    (K3, K5, K4, K4) device time per launch, summed by the launch's lane
@@ -53,14 +56,16 @@ kernels from csrc/, then:
    courtyard(26) through the production asset path (GLB -> .pt -> scene),
    its 512x512 primary rays and two dir-key-sorted bounce populations;
    the counted walk (K6) on every ray, held to its plain version (t, tri,
-   all counts exact) and to K1 (t, tri, nodes); the slab-entry reductions
+   all counts exact) and to K1 (t, tri, nodes), and timed beside K1 on the
+   primary rays; the slab-entry reductions
    (K7) held to their plain version on 4,096 rays of each population over
    all leaves (need, group minima and selection exact); need <= triangle
    tests on every ray; the mt_waste figures;
 8. the probes: K7 at the TPU probe's shapes (prof/probe_prebuilt.py), and
    the sky-round probe (K8, prof/prof_skyround.py) in each mode and for
    each camera, held to its plain version at 4 rounds on all 65,536 lanes,
-   then timed at 64 rounds.
+   then timed at 64 rounds; its timed shape ("full", Duck camera, 64
+   rounds) also held to its plain version.
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
@@ -75,8 +80,9 @@ each launch, with a busy-wait queued ahead of the start event so that the
 host's time between launches is not counted (_timed_call).
 
 --kernel-times runs phases 1, 2 (on the big courtyard only), the
-instrumented dispatches of 5, 6, K7's time at phase 7's shape (on the built
-courtyard's leaves and primary rays) and 8 (K8 on the built courtyard), and
+instrumented dispatches of 5, 6, K6's and K1's times on phase 7's primary
+rays and K7's at phase 7's shape (on the built courtyard), and 8 (K8 on the
+built courtyard), and
 prints their kernel numbers as one JSON line. Those phases use nothing
 that the port lacked before its packed walk tables, so a copy of this
 script times an older tree in turns with a newer one.
@@ -117,7 +123,8 @@ HBM_BYTES_PER_S = 3.35e12
 # issues one instruction per lane and clock (half the FMA peak), and
 # comparisons, min/max, abs and selects issue at half of that; a kernel's
 # instructions then take max(full + half, 2 * half) issue slots. Counted from
-# csrc/traverse.cuh as (full-rate, half-rate) instructions: a slab test is 6
+# csrc/traverse2.cuh slab_key (with the bound's compare) and traverse.cuh
+# moller_trumbore as (full-rate, half-rate) instructions: a slab test is 6
 # subtracts and 6 multiplies; 9 comparisons, 4 min/max and 7 selects. A
 # Moller-Trumbore test is 15 subtracts, 27 multiplies, 9 adds and a divide;
 # 7 comparisons and an abs. K7's inner loop per ray-box pair (its SASS): 6
@@ -138,7 +145,7 @@ LOADED_RECORD_BYTES = 64
 LOADED_TRIANGLE_BYTES = 48
 L2_PASS_BYTES = (8 << 20, 16 << 20)
 L2_RATE = {"bytes_per_s": None}
-# The BVH's SoA planes (the walk of K6 and K8), and the shading tables of
+# The BVH's SoA planes (the plain walk's layout), and the shading tables of
 # K4.
 NODE_PLANES = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_offset", "bvh_second_child",
                "bvh_tri_count", "bvh_split_axis")
@@ -537,7 +544,7 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
     import torch
 
     from rayfinder_tpu_torch.ops.counted import (
-        intersect_closest_counted, intersect_closest_counted_reference, walk_operations,
+        intersect_closest_counted, intersect_closest_counted_reference,
     )
     from rayfinder_tpu_torch.ops.slab import slab_entry_reduce, slab_entry_reduce_reference
     from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
@@ -599,26 +606,66 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
 
     # Times and bounds at the primary population's shape.
     prim = results["primary"]
-    o, d, n = prim["o"], prim["d"], prim["o"].shape[0]
-    t_dev = torch.full((n,), T_MAX, device=dev)  # no host copy inside the timing
-    k6_ms = _time_ms(lambda: intersect_closest_counted(scene, o, d, t_dev), 10)
-    _, k6_plain = _timed(lambda: intersect_closest_counted_reference(scene, o, d, T_MAX))
-    c = prim["counts"].sum(0, dtype=torch.int64).tolist()
-    k6_bound = _bound(walk_operations(c[0], c[2]),
-                      _nbytes(o, d, prim["t"], prim["tri"], prim["counts"]) + 4 * n
-                      + _walk_bytes(scene), issue=_walk_issue(c[0], c[2]),
-                      loaded=_walk_loaded(n, c[0], c[2]))
-    print(f"K6 counted walk: {k6_ms:.3f} ms (plain {k6_plain * 1e3:.1f} ms), bound "
-          f"{k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}), {_second(k6_bound)} at {n} "
-          f"rays [{card}]", flush=True)
-    entries = [
-        _kernel_entry("intersect_closest_counted", "counted.cu", "prof/diag_iters.py:221",
-                      launches[0], 0.0, k6_ms, k6_plain * 1e3, k6_bound, "phase 7 efficiency"),
-        _k7_entry(boxes, o, d, prim["bound"], launches[1], k7_err, card),
-    ]
+    o, d = prim["o"], prim["d"]
+    entries = [_k6_entry(scene, o, d, prim["counts"], launches[0], card),
+               _k7_entry(boxes, o, d, prim["bound"], launches[1], k7_err, card)]
     fields = {k: v for k, v in fields.items() if not k.startswith("need_over_tests")}
     fields["rays"] = {name: int(r["o"].shape[0]) for name, r in results.items()}
     return entries, fields, scene
+
+
+def _k6_entry(scene, o, d, counts, launches: int, card: str) -> dict:
+    """K6's time, plain time and bound on the rays (o, d), whose counted
+    work is `counts`, and K1's time on the same rays beside it (K6 is K1's
+    kernel with two more counters)."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import (
+        intersect_closest_counted, intersect_closest_counted_reference, walk_operations,
+    )
+    from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    n = o.shape[0]
+    t_dev = torch.full((n,), T_MAX, device=o.device)  # no host copy inside the timing
+    k6_ms = _time_ms(lambda: intersect_closest_counted(scene, o, d, t_dev), 20)
+    k1_ms = _time_ms(lambda: intersect_closest_kernel(scene, o, d, t_dev), 20)
+    _, k6_plain = _timed(lambda: intersect_closest_counted_reference(scene, o, d, T_MAX))
+    c = counts.sum(0, dtype=torch.int64).tolist()
+    k6_bound = _bound(walk_operations(c[0], c[2]), _nbytes(o, d, counts) + 12 * n
+                      + _walk_bytes(scene), issue=_walk_issue(c[0], c[2]),
+                      loaded=_walk_loaded(n, c[0], c[2]))
+    print(f"K6 counted walk: {k6_ms:.4f} ms, K1 on the same rays {k1_ms:.4f} ms (plain "
+          f"{k6_plain * 1e3:.1f} ms), bound {k6_bound['bound_ms']:.4f} ms "
+          f"({k6_bound['bound_by']}), {_second(k6_bound)} at {n} rays [{card}]", flush=True)
+    entry = _kernel_entry("intersect_closest_counted", "walk.cu", "prof/diag_iters.py:221",
+                          launches, 0.0, k6_ms, k6_plain * 1e3, k6_bound, "phase 7 efficiency")
+    entry["k1_ms_same_rays"] = k1_ms
+    return entry
+
+
+def _k6_on_built_scene(scene, camera, dev, card: str) -> dict:
+    """--kernel-times: K6 and K1 on phase 7's primary rays without the .pt
+    asset path (the built courtyard's 512x512 primaries), K6 held to its
+    plain version and to K1 on every ray."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import (
+        intersect_closest_counted, intersect_closest_counted_reference,
+    )
+    from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
+    from rayfinder_tpu_torch.prof import diag_iters
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+
+    o, d = diag_iters.primary_rays(camera, SLICE["width"], SLICE["height"], dev)
+    _, t, tri, counts = intersect_closest_counted(scene, o, d, T_MAX)
+    _, pt, ptri, pcounts = intersect_closest_counted_reference(scene, o, d, T_MAX)
+    _, kt, ktri, kvisits = intersect_closest_kernel(scene, o, d, T_MAX)
+    _require(torch.equal(t, pt) and torch.equal(tri, ptri) and torch.equal(counts, pcounts),
+             "K6 differs from its plain version on the primary rays")
+    _require(torch.equal(t, kt) and torch.equal(tri, ktri) and torch.equal(counts[:, 0], kvisits),
+             "K6 differs from K1 on the primary rays")
+    return _k6_entry(scene, o, d, counts, 0, card)
 
 
 def _k7_entry(boxes, o, d, bound, launches: int, err: float, card: str) -> dict:
@@ -720,7 +767,12 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
     # walks' work is K6's count over the rays of every round.
     pargs = prof_skyround.probe_args(scene, dev, "duck")
     n = pargs[3].shape[0]
-    _, plain_s = _timed(lambda: sky_round_reference(*pargs, rounds, "full"))
+    ref, plain_s = _timed(lambda: sky_round_reference(*pargs, rounds, "full"))
+    acc = sky_round(*pargs, rounds, "full")
+    diff = float((acc - ref).abs().max())
+    err = max(err, diff)
+    _require(bool(torch.allclose(acc, ref, rtol=1e-5, atol=1e-5)),
+             f"K8 duck full at {rounds} rounds: kernel and plain differ beyond rtol 1e-5")
     nodes = tests = 0
     for r in range(rounds):
         c = intersect_closest_counted(scene, *prof_skyround.sample_rays(pargs, r),
@@ -732,7 +784,8 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
                    _nbytes(*pargs[3:6]) + 4 * n + _walk_bytes(scene),
                    issue=(full + n * rounds * (SKY_OPS + REGEN_OPS), half),
                    loaded=_walk_loaded(n * rounds, nodes, tests))
-    print(f"K8 full, duck camera, {rounds} rounds: plain {plain_s * 1e3:.1f} ms, bound "
+    print(f"K8 full, duck camera, {rounds} rounds: max |kernel - plain| {diff:.3e}; plain "
+          f"{plain_s * 1e3:.1f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {_second(bound)} [{card}]",
           flush=True)
     entry = _kernel_entry("sky_round", "skyround.cu", "prof/prof_skyround.py:147", launches,
@@ -1201,6 +1254,48 @@ def _capped_dispatch(scene, sky, camera, tile, dev, card: str) -> dict:
             "peak_bytes": pa, "peak_bytes_cap_lifted": pb, "rays": ra.tolist()}
 
 
+def _hybrid_capped(scene, sky, camera, tile, dev, card: str) -> dict:
+    """One 256-sample dispatch of the hybrid (compact_floor 131,072: a split
+    phase 0, then one K4 call at floor 0 over the last phase's 131,072
+    lanes, whose scratch would pass the cap): it must run its last call in
+    chunks of lanes and equal the same dispatch with the cap lifted (one
+    call), bit for bit, with the split route's ray counts."""
+    import torch
+
+    from rayfinder_tpu_torch.ops import regen_shaded
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+
+    w, h, nf, floor = SLICE["width"], SLICE["height"], 256, 131_072
+    cap = regen_shaded.SCRATCH_CAP_BYTES
+    _require(12 * floor * nf > cap, "the hybrid's last call would fit the cap")
+    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=nf, num_frames=nf,
+              count_rays=True)
+    zeros = torch.zeros(w * h, 3, device=dev)
+    results = {}
+    for name, lifted in (("capped", cap), ("cap lifted", 12 * floor * nf)):
+        regen_shaded.SCRATCH_CAP_BYTES = lifted
+        regen_shaded.trace_regen_shaded.launches = 0
+        (accum, rays), secs = _timed(lambda: accumulate_samples_regen(
+            scene, sky, camera, tile, 0, zeros, inkernel=True, compact_floor=floor, **kw))
+        results[name] = (accum, rays, regen_shaded.trace_regen_shaded.launches, secs)
+    regen_shaded.SCRATCH_CAP_BYTES = cap
+    (_, split_rays), split_s = _timed(lambda: accumulate_samples_regen(
+        scene, sky, camera, tile, 0, zeros, inkernel=False, **kw))
+    (a, ra, la, sa), (b, rb, lb, sb) = results["capped"], results["cap lifted"]
+    same = bool(torch.equal(a, b)) and bool(torch.equal(ra, rb))
+    print(f"hybrid dispatch, {w * h} lanes x {nf} samples, compact_floor {floor} (last K4 call's "
+          f"scratch {12 * floor * nf} bytes against the cap of {cap}): {la} K4 calls, {sa:.3f} s; "
+          f"cap lifted: {lb} call, {sb:.3f} s; equal bit for bit (radiance, counts "
+          f"{ra.tolist()}): {same}; split route {split_s:.3f} s, counts {split_rays.tolist()} "
+          f"[{card}]", flush=True)
+    _require((la, lb) == (2, 1), f"the capped hybrid took {la} K4 calls, the lifted one {lb}")
+    _require(same, "the capped hybrid dispatch differs from the uncapped one")
+    _require(ra.tolist() == split_rays.tolist(),
+             f"the hybrid counts {ra.tolist()}, the split route {split_rays.tolist()}")
+    return {"samples": nf, "compact_floor": floor, "calls": la, "seconds": sa,
+            "seconds_cap_lifted": sb, "rays": ra.tolist()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -1319,6 +1414,7 @@ def main(argv=None) -> int:
                     "K5": route_launches["segs2"]["K5"],
                     "K4 one call": route_launches["default"]["K4"]}
         slice_numbers["capped"] = _capped_dispatch(scene26, sky, camera, tile, dev, card)
+        slice_numbers["hybrid_capped"] = _hybrid_capped(scene26, sky, camera, tile, dev, card)
 
         # --- 5b. the routes on the textured courtyard at the slice's size ---
         t0 = time.perf_counter()
@@ -1338,9 +1434,10 @@ def main(argv=None) -> int:
     path_entries = _path_kernels(scene26, camera, sky, tile, dev, card, launches)
 
     # --- 7. the traversal-efficiency path: K6 and K7 -----------------------
-    # (--kernel-times: K7 alone, on the built courtyard.)
+    # (--kernel-times: K6 beside K1, and K7, on the built courtyard.)
     eff_entries, efficiency, scene_pt = _efficiency(dev, card) if full else (
-        [_k7_on_built_scene(scene26, camera, dev, card)], {}, scene26)
+        [_k6_on_built_scene(scene26, camera, dev, card),
+         _k7_on_built_scene(scene26, camera, dev, card)], {}, scene26)
 
     # --- 8. the probes: K7 at the TPU probe's shapes, K8 ---------------------
     k8_entry, probes = _probes(dev, card, scene_pt)

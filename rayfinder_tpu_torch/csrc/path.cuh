@@ -1,5 +1,6 @@
 // Per-lane pieces of the path kernels (K3 regen.cu, K4 regen_shaded.cu, K5
-// regen_segs.cu): the camera/sky/loop parameters, the animated blue noise,
+// regen_segs.cu) and of the sky-round probe (K8 skyround.cu): the
+// camera/sky/loop parameters, the animated blue noise,
 // the thin-lens primary ray, the Perez sky, the pending-NEE resolve, and the
 // flush of a finished sample. Each is one thread's work on its own lane.
 //
@@ -135,8 +136,8 @@ __device__ __forceinline__ Vec3 sky_radiance(const RegenParams& p, Vec3 d) {
 // Pending NEE light sample of the previous segment: the shadow ray is traced
 // only where the contribution is non-zero (the TPU kernels give the others
 // a -inf bound, which cannot hit); returns srad + contrib * visible. View is
-// the plane walk's SceneView (K8) or the packed walk's PackedView (K3, K4,
-// K5).
+// the packed walk's PackedView (K3, K5) or SharedStackView (K4's work
+// items).
 template <class View>
 __device__ __forceinline__ Vec3 add_nee(const View& s, float t_max, Vec3 srad, Vec3 c,
                                         Vec3 shadow_o, Vec3 shadow_d) {

@@ -5,7 +5,7 @@
 // _make_path_kernel, helpers _sky_rows, _primary_rows, _noise_rows). Per
 // lane, in the order of the TPU kernel:
 //   1. resolve the pending NEE light sample of the previous segment: the
-//      shadow ray is traced (any hit, traverse.cuh) when flag is 1 or 2 and
+//      shadow ray is traced (any hit, traverse2.cuh) when flag is 1 or 2 and
 //      the contribution is non-zero (otherwise the bound is -inf and it
 //      cannot hit, _make_path_kernel :279-284); srad += contrib * visible;
 //   2. flag == 2 (depth limit or degenerate scatter): flush srad into lrad,

@@ -55,7 +55,7 @@
 // Numerics: subtractions and products rounded one by one (--fmad=false),
 // the same selects and NaN-propagating min/max as the plain torch version
 // (ops/slab.py slab_entry_rows), so the reductions agree exactly. The slab
-// arithmetic is this file's own copy (traverse.cuh keeps its code). Of two
+// arithmetic is this file's own copy (traverse2.cuh keeps its code). Of two
 // zeros of different sign, max.NaN returns +0 where the plain version may
 // return -0: the two compare equal, and no comparison downstream tells them
 // apart.

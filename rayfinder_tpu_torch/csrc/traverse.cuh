@@ -1,18 +1,20 @@
-// Per-thread BVH traversal for NVIDIA Hopper (sm_90a): closest hit and
-// any hit, as device functions: the plane walk of the counted walk
-// (counted.cu) and the sky-round probe (skyround.cu), and the vector, slab
-// and triangle arithmetic that every kernel shares.
+// The arithmetic that every kernel's BVH walk and K7 share, for NVIDIA
+// Hopper (sm_90a): vectors, the NaN-propagating min/max of torch, the
+// Moller-Trumbore triangle test, the stack depth and the launch block.
 //
-// Replaces the TPU's block-uniform cluster sweeps
+// Replaces the arithmetic of the TPU's block-uniform cluster sweeps
 // (rayfinder_tpu/ops/pallas_walk.py: _closest_tile_sweep,
 // _closest_tile_sweep_grouped, _any_tile_sweep, _any_tile_sweep_grouped).
 // A GPU thread has its own control flow, so each ray walks the flattened
 // BVH with a 32-entry stack, near child first -- the reference's own
 // traversal (src/pt/reference_path_tracer.wgsl:370-429) and exactly the
-// algorithm of the plain torch version (rayfinder_tpu_torch/render/
-// traverse.py): the same visit order, the same ray_aabb comparisons against
-// the best t so far, and the same behaviour when the stack is full (a push
-// at depth 32 is dropped, the pointer still moves).
+// algorithm of the plain torch walk (rayfinder_tpu_torch/render/
+// traverse.py _walk): the same visit order, the same slab comparisons
+// against the best t so far, and the same behaviour when the stack is full
+// (a push at depth 32 is dropped, the pointer still moves). Every kernel
+// walks it over the packed tables (traverse2.cuh walk_packed); the walk
+// over the SoA planes that the kernels ran before survives only as the
+// probe's baseline form (prof/walk_probe.cu).
 //
 // Numerics: every product and sum is rounded on its own, in the order the
 // torch version evaluates it. The build passes --fmad=false, so nvcc does
@@ -20,13 +22,6 @@
 // Moller-Trumbore's det/u/v/t and of the slab test), and no fast-math flag,
 // so 1/x and sqrt are IEEE-rounded. t, tri and occlusion are then bit-exact
 // against the torch version.
-//
-// What bounds it on the card: divergent, latency-bound loads of BVH nodes
-// and triangles (each step of a thread depends on the previous load; warps
-// diverge on traversal order and depth), not arithmetic. The ray queries K1
-// and K2 and the path kernels K3, K4 and K5 walk the same tree through
-// two-child records and 16-byte loads instead (traverse2.cuh), with the same
-// results; K6 and K8 read the planes here. Tensor cores (wgmma) do not apply.
 
 #pragma once
 
@@ -36,17 +31,6 @@ namespace rf {
 
 constexpr int kStackDepth = 32;
 constexpr float kEpsilon = 1e-5f;
-
-struct SceneView {
-  const float* aabb_min;    // (N, 3)
-  const float* aabb_max;    // (N, 3)
-  const int* tri_offset;    // (N,)
-  const int* second_child;  // (N,)
-  const int* tri_count;     // (N,) 0 on interior nodes
-  const int* split_axis;    // (N,)
-  const float* tri_pos;     // (T, 3, 3) leaf order
-  int num_tris;
-};
 
 struct Vec3 {
   float x, y, z;
@@ -89,27 +73,6 @@ __device__ __forceinline__ float component(Vec3 v, int axis) {
   return axis == 0 ? v.x : (axis == 1 ? v.y : v.z);
 }
 
-// Slab test (ray_intersection.cpp:101-136, render/intersect.py ray_aabb).
-__device__ __forceinline__ bool ray_aabb(const SceneView& s, int node, Vec3 o,
-                                         Vec3 inv, float t_max) {
-  const Vec3 lo = load3(s.aabb_min, node);
-  const Vec3 hi = load3(s.aabb_max, node);
-  const float nx = inv.x < 0.0f ? hi.x : lo.x, fx = inv.x < 0.0f ? lo.x : hi.x;
-  const float ny = inv.y < 0.0f ? hi.y : lo.y, fy = inv.y < 0.0f ? lo.y : hi.y;
-  const float nz = inv.z < 0.0f ? hi.z : lo.z, fz = inv.z < 0.0f ? lo.z : hi.z;
-  const float t0x = (nx - o.x) * inv.x, t1x = (fx - o.x) * inv.x;
-  const float t0y = (ny - o.y) * inv.y, t1y = (fy - o.y) * inv.y;
-  const float t0z = (nz - o.z) * inv.z, t1z = (fz - o.z) * inv.z;
-
-  const float tmin_xy = max_nan(t0x, t0y);
-  const float tmax_xy = min_nan(t1x, t1y);
-  const bool fail_xy = (t0x > t1y) || (t0y > t1x);
-  const bool fail_z = (tmin_xy > t1z) || (t0z > tmax_xy);
-  const float tmin = max_nan(tmin_xy, t0z);
-  const float tmax = min_nan(tmax_xy, t1z);
-  return !fail_xy && !fail_z && (tmin < t_max) && (tmax > 0.0f);
-}
-
 // Moller-Trumbore (wgsl:477-521, render/intersect.py ray_triangle) on the
 // vertices (9 floats: v0, v1, v2). Returns whether the ray hits below t_max;
 // *t_out, *u_out, *v_out are valid where it does.
@@ -133,108 +96,6 @@ __device__ __forceinline__ bool moller_trumbore(const float* p, Vec3 o, Vec3 d, 
   *v_out = v;
   return fabsf(det) >= kEpsilon && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
          u + v <= 1.0f && t > kEpsilon && t < t_max;
-}
-
-__device__ __forceinline__ bool ray_triangle(const SceneView& s, int tri, Vec3 o,
-                                             Vec3 d, float t_max, float* t_out) {
-  float u, v;
-  return moller_trumbore(s.tri_pos + 9ll * tri, o, d, t_max, t_out, &u, &v);
-}
-
-// One thread's near-first stack walk. Returns the leaf-order index of the
-// accepted triangle (-1 if none); *t_best holds its t (t_max if none).
-// kAnyHit stops at the first accepted triangle (shadow rays). kCount also
-// counts the leaves entered and the triangles tested (K6, counted.cu); with
-// kCount false those counters are compiled out, so K1-K5 keep their code.
-template <bool kAnyHit, bool kCount = false>
-__device__ int walk(const SceneView& s, Vec3 o, Vec3 d, float t_max, float* t_best_out,
-                    int* visits_out, int* leaves_out = nullptr, int* tests_out = nullptr) {
-  const Vec3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
-  float t_best = t_max;
-  int hit_tri = -1;
-  int visits = 0;
-  int leaves = 0;
-  int tests = 0;
-  int stack[kStackDepth];
-  int sp = 0;
-  int node = 0;
-  while (true) {
-    ++visits;
-    bool pop = true;
-    if (ray_aabb(s, node, o, inv, t_best)) {
-      const int count = s.tri_count[node];
-      if (count > 0) {
-        if (kCount) ++leaves;
-        const int first = s.tri_offset[node];
-        for (int k = 0; k < count; ++k) {
-          const int tri = min(first + k, s.num_tris - 1);
-          float t;
-          if (kCount) ++tests;
-          if (ray_triangle(s, tri, o, d, t_best, &t)) {
-            t_best = t;
-            hit_tri = tri;
-            if (kAnyHit) {
-              *t_best_out = t_best;
-              if (visits_out) *visits_out = visits;
-              if (kCount) {
-                *leaves_out = leaves;
-                *tests_out = tests;
-              }
-              return hit_tri;
-            }
-          }
-        }
-      } else {
-        // Push the far child, descend into the near one (wgsl:408-418).
-        const bool axis_neg = component(inv, s.split_axis[node]) < 0.0f;
-        const int second = s.second_child[node];
-        const int near_child = axis_neg ? second : node + 1;
-        const int far_child = axis_neg ? node + 1 : second;
-        if (sp < kStackDepth) stack[sp] = far_child;
-        ++sp;
-        node = near_child;
-        pop = false;
-      }
-    }
-    if (pop) {
-      if (sp == 0) break;
-      --sp;
-      node = stack[min(sp, kStackDepth - 1)];
-    }
-  }
-  *t_best_out = t_best;
-  if (visits_out) *visits_out = visits;
-  if (kCount) {
-    *leaves_out = leaves;
-    *tests_out = tests;
-  }
-  return hit_tri;
-}
-
-__device__ __forceinline__ int closest_hit(const SceneView& s, Vec3 o, Vec3 d, float t_max,
-                                           float* t_out, int* visits_out) {
-  return walk<false>(s, o, d, t_max, t_out, visits_out);
-}
-
-// closest_hit that also counts the work: nodes visited, leaves entered,
-// triangles tested.
-__device__ __forceinline__ int closest_hit_counted(const SceneView& s, Vec3 o, Vec3 d,
-                                                   float t_max, float* t_out, int* visits_out,
-                                                   int* leaves_out, int* tests_out) {
-  return walk<false, true>(s, o, d, t_max, t_out, visits_out, leaves_out, tests_out);
-}
-
-__device__ __forceinline__ bool any_hit(const SceneView& s, Vec3 o, Vec3 d, float t_max) {
-  float t;
-  return walk<true>(s, o, d, t_max, &t, nullptr) >= 0;
-}
-
-inline SceneView make_scene(const float* aabb_min, const float* aabb_max,
-                            const int* tri_offset, const int* second_child,
-                            const int* tri_count, const int* split_axis,
-                            const float* tri_pos, int num_tris) {
-  return SceneView{aabb_min, aabb_max, tri_offset, second_child, tri_count,
-                   split_axis, tri_pos, num_tris};
 }
 
 constexpr int kBlock = 128;

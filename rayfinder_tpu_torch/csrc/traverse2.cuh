@@ -1,9 +1,12 @@
-// The BVH walk of the ray queries K1 and K2 (walk.cu) and the path kernels
-// K3 (regen.cu), K4 (regen_shaded.cu) and K5 (regen_segs.cu) over the packed
-// walk tables: two-child 64-byte node records and 16-byte triangle rows,
-// read with 16-byte loads. Same results as the plane walk of traverse.cuh,
-// and as its plain torch version (render/traverse.py intersect_packed, which
-// holds the same rule).
+// The BVH walk of every kernel that walks: the ray queries K1, K2 and the
+// counted walk K6 (walk.cu), the path kernels K3 (regen.cu), K4
+// (regen_shaded.cu) and K5 (regen_segs.cu), and the sky-round probe K8
+// (skyround.cu), over the packed walk tables: two-child 64-byte node records
+// and 16-byte triangle rows, read with 16-byte loads. Same results as the
+// plane walk over the SoA planes (render/traverse.py _walk, the plain
+// specification; prof/walk_probe.cu keeps it in CUDA as the probes' baseline
+// form), and as its own plain torch version (render/traverse.py
+// intersect_packed, which holds the same rule).
 //
 // Tables (built at upload, render/scene.py _walk_tables):
 //   bvh_nodes2 (M, 16) int32, one record per interior node, in node order:
@@ -66,7 +69,7 @@
 // keep the local stack (PERF.md).
 //
 // The rule that keeps it bit-exact with the plane walk:
-//   * at a record, run the slab arithmetic of traverse.cuh (ray_aabb) on
+//   * at a record, run the plane walk's slab arithmetic (ray_aabb) on
 //     both children; near and far by split_axis and the sign of inv, as
 //     there (not by entry distance);
 //   * always push the far child, with its entry distance tmin, or +inf
@@ -104,11 +107,9 @@ struct PackedView {
 
 // Entry distance of a child's box: tmin where the bound-free terms of the
 // slab test pass, else +inf, so that the full test against a bound is
-// `key < bound`. The arithmetic of traverse.cuh's ray_aabb, operation for
-// operation, split at its bound term (render/intersect.py ray_aabb_entry).
-// A copy: on the H100, ray_aabb written over a shared helper made the plane
-// walk's kernels up to 8% slower (PERF.md); the card tests hold both walks
-// to their plain versions, which share their terms (_slab_terms). The
+// `key < bound`. The arithmetic of the plane walk's slab test (ray_aabb),
+// operation for operation, split at its bound term (render/intersect.py
+// ray_aabb_entry; the plain versions share their terms, _slab_terms). The
 // NaN-propagating min/max are PTX's (max_nan1, min_nan1): of two zeros of
 // different sign they may return the other one than traverse.cuh's max_nan,
 // which no comparison downstream tells apart (a key is only compared with a
@@ -159,20 +160,27 @@ __device__ __forceinline__ StackEntry* shared_stack() {
 
 // One thread's walk over the packed tables. Returns the leaf-order index of
 // the accepted triangle (-1 if none); *t_best_out holds its t (t_max if
-// none). kAnyHit stops at the first accepted triangle. kCount also counts
-// the records read into *records_out (K1: a closest walk makes one slab test
-// for the root and two per record, the nodes the plane walk visits); with
-// kCount false the counter is compiled out. kShared: how many of the stack's
-// first entries live in shared memory (0: none; the block is kBlock threads).
-template <bool kAnyHit, bool kCount = false, int kShared = 0>
+// none). kAnyHit stops at the first accepted triangle. kCount is a level of
+// counting: 0 none (the path kernels, K2); 1 the records read, into
+// *records_out (K1: a closest walk makes one slab test for the root and two
+// per record, the nodes the plane walk visits); 2 also the leaves entered
+// (a leaf entry taken: the plane walk's slab test passing on a leaf) and the
+// triangles tested (each Moller-Trumbore call), into *leaves_out and
+// *tests_out (K6). Counters above the level are compiled out, so a level
+// adds only its own. kShared: how many of the stack's first entries live in
+// shared memory (0: none; the block is kBlock threads).
+template <bool kAnyHit, int kCount = 0, int kShared = 0>
 __device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, float* t_best_out,
-                           int* records_out = nullptr) {
+                           int* records_out = nullptr, int* leaves_out = nullptr,
+                           int* tests_out = nullptr) {
   static_assert(kShared >= 0 && kShared <= kStackDepth, "the stack has kStackDepth entries");
   constexpr int kLocal = kStackDepth - kShared;
   const Vec3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float t_best = t_max;
   int hit_tri = -1;
   int records = 0;
+  int leaves = 0;
+  int tests = 0;
   StackEntry stack[kLocal > 0 ? kLocal : 1];  // entries kShared .. kStackDepth - 1
   StackEntry* shared = nullptr;               // entries 0 .. kShared - 1, kBlock apart
   if constexpr (kShared > 0) shared = shared_stack<kShared>();
@@ -231,18 +239,20 @@ __device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, flo
         }
       }
       ++sp;
-      if (kCount) ++records;
+      if (kCount >= 1) ++records;
       ref = axis_neg ? m.y : m.x;
       count = axis_neg ? count_r : m.z;
       take = (axis_neg ? key_r : key_l) < t_best;
     }
     if (alive) {
+      if (kCount >= 2) ++leaves;
       for (int k = 0; k < count; ++k) {
         const int tri = min(ref + k, s.num_tris - 1);
         const float4* p4 = s.tris + 3ll * tri;
         const float4 a = __ldg(p4), b = __ldg(p4 + 1), c = __ldg(p4 + 2);
         const float p[9] = {a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
         float t, u, v;
+        if (kCount >= 2) ++tests;
         if (moller_trumbore(p, o, d, t_best, &t, &u, &v)) {
           t_best = t;
           hit_tri = tri;
@@ -256,7 +266,11 @@ __device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, flo
     }
   }
   *t_best_out = t_best;
-  if (kCount) *records_out = records;
+  if (kCount >= 1) *records_out = records;
+  if (kCount >= 2) {
+    *leaves_out = leaves;
+    *tests_out = tests;
+  }
   return hit_tri;
 }
 
@@ -280,14 +294,14 @@ struct SharedStackView {
 template <int kShared>
 __device__ __forceinline__ int closest_hit(const SharedStackView<kShared>& s, Vec3 o, Vec3 d,
                                            float t_max, float* t_out) {
-  return walk_packed<false, false, kShared>(s.view, o, d, t_max, t_out);
+  return walk_packed<false, 0, kShared>(s.view, o, d, t_max, t_out);
 }
 
 template <int kShared>
 __device__ __forceinline__ bool any_hit(const SharedStackView<kShared>& s, Vec3 o, Vec3 d,
                                         float t_max) {
   float t;
-  return walk_packed<true, false, kShared>(s.view, o, d, t_max, &t) >= 0;
+  return walk_packed<true, 0, kShared>(s.view, o, d, t_max, &t) >= 0;
 }
 
 // The view of the C entry points of K1-K5: the root's rows of the SoA

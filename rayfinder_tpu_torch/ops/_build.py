@@ -29,8 +29,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu", "counted.cu",
-           "slab_entry.cu", "skyround.cu")
+SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu", "slab_entry.cu",
+           "skyround.cu")
 HEADERS = ("traverse.cuh", "traverse2.cuh", "path.cuh", "shade.cuh")
 # Flags of each source's compile; the objects are then linked with -shared.
 NVCC_FLAGS = (
@@ -40,12 +40,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Scene arguments of the entry points over the SoA planes (K6, K8): the six
-# BVH planes, the triangle positions, the triangle count.
-_SCENE_ARGTYPES = [_P] * 7 + [_I]
-# ... and of the entry points over the packed walk tables (K1-K5): the
-# root's rows of aabb_min, aabb_max, tri_offset, tri_count, then bvh_nodes2,
-# tri_pos4, the triangle count.
+# Scene arguments of the entry points that walk the BVH (K1-K6, K8): the
+# root's rows of aabb_min, aabb_max, tri_offset, tri_count, then the packed
+# walk tables bvh_nodes2 and tri_pos4, the triangle count.
 _PACKED_ARGTYPES = [_P] * 6 + [_I]
 # ... and of the in-kernel shade: triangle attributes, texture descriptors,
 # texels.
@@ -65,12 +62,12 @@ _ARGTYPES = {
     # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
     "rf_trace_regen_segs": _PACKED_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
     # ..., origin, direction, t_max, n, t, tri, counts, stream
-    "rf_intersect_closest_counted": _SCENE_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
+    "rf_intersect_closest_counted": _PACKED_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
     # box_min, box_max, weight, m, group, origin, inv_dir, bound, n, need,
     # group_min (or null), first_group, stream
     "rf_slab_entry_reduce": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     # ..., params, n, rounds, mode, u, v_tex, noise_base, acc, stream
-    "rf_sky_round": _SCENE_ARGTYPES + [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rf_sky_round": _PACKED_ARGTYPES + [_P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -175,8 +172,9 @@ def _pointers(scene, device, tables) -> list:
 
 
 def scene_args(scene, device) -> list:
-    """The scene's pointer and triangle-count arguments, after checking its
-    tensors."""
+    """The pointers of the scene's SoA planes and triangle positions and its
+    triangle count, after checking them: the arguments of the plane walk,
+    which only the probe (prof/walk_probe.cu) still runs."""
     n, t = scene.num_nodes, scene.num_triangles
     return _pointers(scene, device, (
         ("bvh_aabb_min", torch.float32, (n, 3)),

@@ -3,10 +3,12 @@
 Counterpart of `counted_closest` (prof/diag_iters.py), the TPU's grouped
 closest sweep with per-tile super-visit and inner-iteration counters. On
 this card the walk is per thread, so the work is counted per ray: nodes
-visited, leaves entered, triangles tested. The kernel (csrc/counted.cu) is
-K1's walk with the counters switched on (traverse.cuh walk<false, true>), so
-t, tri and the node count equal K1's bit for bit. The plain version is the
-torch lockstep walk of render/traverse.py with the same two extra counters.
+visited, leaves entered, triangles tested. The kernel (csrc/walk.cu) is
+K1's kernel over the packed walk tables (`bvh_nodes2`, `tri_pos4`) at the
+walk's counting level 2 (traverse2.cuh walk_packed), so t, tri and the node
+count equal K1's bit for bit; a scene without the tables raises. The plain
+version is the torch plane walk of render/traverse.py with its two extra
+counters, the specification every walk is held to.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.
@@ -26,8 +28,9 @@ __all__ = ["intersect_closest_counted", "intersect_closest_counted_reference",
            "walk_operations"]
 
 # Operations of one slab test and of one Moller-Trumbore test, counted from
-# csrc/traverse.cuh (ray_aabb, moller_trumbore): each add, subtract,
-# multiply, divide, min, max, abs and comparison is one; selects are not.
+# csrc/traverse2.cuh slab_key (with the bound's compare) and csrc/traverse.cuh
+# moller_trumbore: each add, subtract, multiply, divide, min, max, abs and
+# comparison is one; selects are not.
 SLAB_TEST_OPS = 25
 TRIANGLE_TEST_OPS = 60
 
@@ -58,7 +61,7 @@ def intersect_closest_counted(scene: DeviceScene, origin, direction, t_max):
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_intersect_closest_counted(
-                *_build.scene_args(scene, dev), origin.data_ptr(), direction.data_ptr(),
+                *_build.packed_args(scene, dev), origin.data_ptr(), direction.data_ptr(),
                 t_max.data_ptr(), n, t.data_ptr(), tri.data_ptr(), counts.data_ptr(),
                 _build.stream_of(dev),
             )

@@ -20,9 +20,11 @@ small kernel folds them into the lane's radiance in sample order, so every
 output equals the tile rule's bit for bit (the wrapper allocates the
 scratch, B x num_frames x 3 floats, and the zeroed counter). That scratch is
 capped at SCRATCH_CAP_BYTES: a call that would need more raises, and the
-loop (render/pathtracer.py) splits a dispatch into runs of
-`samples_per_call` samples. Both kernels count the rays they trace, and the
-call returns the counts with the lane state. The plain version
+loop (render/pathtracer.py) keeps its calls inside the cap: a dispatch from
+every lane's first sample in runs of `samples_per_call` samples, a call over
+lanes already in flight in chunks of `lanes_per_call` lanes (whole tiles).
+Both kernels count the rays they trace, and the call returns the counts
+with the lane state. The plain version
 `trace_regen_shaded_reference` runs the same rounds in torch over the lanes
 of the tiles still running. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises.
@@ -43,8 +45,8 @@ from ..sky.model import SkyState, sky_radiance_dir
 from . import _build
 from .regen import _params, add_nee, lane_inputs, primaries
 
-__all__ = ["trace_regen_shaded", "trace_regen_shaded_reference", "samples_per_call", "TILE",
-           "SCRATCH_CAP_BYTES"]
+__all__ = ["trace_regen_shaded", "trace_regen_shaded_reference", "samples_per_call",
+           "lanes_per_call", "TILE", "SCRATCH_CAP_BYTES"]
 
 # Lanes per tile: the live floor is counted per tile (the CUDA block).
 TILE = 128
@@ -61,6 +63,13 @@ def samples_per_call(lanes: int) -> int:
     with its scratch inside SCRATCH_CAP_BYTES (at least 1: a call of more
     lanes than the cap holds at one sample raises)."""
     return max(1, SCRATCH_CAP_BYTES // (_ITEM_BYTES * max(lanes, 1)))
+
+
+def lanes_per_call(samples: int) -> int:
+    """Lanes, in whole 128-lane tiles, that one floor-0 call of `samples`
+    samples per pixel may take with its scratch inside SCRATCH_CAP_BYTES (at
+    least one tile: a tile of more samples than the cap holds raises)."""
+    return TILE * max(1, SCRATCH_CAP_BYTES // (_ITEM_BYTES * max(samples, 1) * TILE))
 
 
 def trace_regen_shaded(

@@ -2,8 +2,10 @@
 
 Counterpart of the probe kernel of prof/prof_skyround.py, which splits one
 regen round of the TPU path kernel into sweep, sky evaluation and primary
-regeneration. The kernel (csrc/skyround.cu) loops `rounds` times per lane
-over K3's own device functions; `mode` picks the parts:
+regeneration. The kernel (csrc/skyround.cu) runs `rounds` rounds per lane
+over the path kernels' own device functions: the packed walk over the
+scene's `bvh_nodes2` / `tri_pos4` (a scene without them raises), the noise,
+the primary ray and the sky; `mode` picks the parts:
 
 - "full": closest hit, then sky, then the next primary ray;
 - "nosweep": sky and the next primary;
@@ -14,10 +16,13 @@ over K3's own device functions; `mode` picks the parts:
   one this round.
 
 Each lane accumulates the hit's t and the sky's r + g + b; the result is
-acc (N,) f32. The plain version `sky_round_reference` runs the same loop
-over the port's torch functions (render/rng.py noise_of,
-render/camera.py primary_ray, sky/model.py sky_radiance_dir,
-render/traverse.py intersect_closest), in the same order of operations.
+acc (N,) f32. In "full", "nosweep" and "sweeponly" a warp takes a lane and
+its threads take the lane's rounds; the sums are added in round order, so
+the result is that of one loop over the rounds. The plain version
+`sky_round_reference` runs that loop over the port's torch functions
+(render/rng.py noise_of, render/camera.py primary_ray, sky/model.py
+sky_radiance_dir, render/traverse.py intersect_closest), in the same order
+of operations.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.
@@ -123,7 +128,7 @@ def sky_round(scene: DeviceScene, camera: Camera, sky: SkyState, u, v_tex, noise
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_sky_round(
-                *_build.scene_args(scene, dev), ctypes.addressof(params), n, int(rounds),
+                *_build.packed_args(scene, dev), ctypes.addressof(params), n, int(rounds),
                 MODES.index(mode), u.data_ptr(), v_tex.data_ptr(), noise_base.data_ptr(),
                 acc.data_ptr(), _build.stream_of(dev),
             )

@@ -1,9 +1,11 @@
-// Probe kernels of the ray queries K1 and K2 (prof/walk_probe.py): forms of
-// the packed walk chosen by macros at build time, to be timed in turns with
-// the shipped kernels, and an instrumented closest walk that counts its
-// steps. Every form keeps each ray's own order of records, pushes, pops and
-// triangle tests, so t, tri, the node count and occlusion must equal the
-// shipped kernels' bit for bit; the probe checks that before it times.
+// Probe kernels of the ray queries K1 and K2 and of the sky-round probe K8
+// (prof/walk_probe.py): forms of the packed walk chosen by macros at build
+// time, to be timed in turns with the shipped kernels, the plane walk that
+// the port's kernels used before the packed tables, and instrumented walks
+// that count their steps. Every form keeps each ray's own order of records,
+// pushes, pops and triangle tests, so t, tri, the node count, occlusion and
+// K8's sums must equal the shipped kernels' bit for bit; the probe checks
+// that before it times.
 //
 //   RF_LOOP       0: one loop that takes one step (record, leaf or pop) per
 //                    trip; 1: while-while (records and pops until the lane
@@ -11,28 +13,46 @@
 //                    the seek (pop until an entry to take, then record or
 //                    leaf); 3: seek and while-while (walk_packed's form)
 //   RF_PTX_MINMAX 1: min.NaN / max.NaN in PTX (traverse2.cuh's slab_key);
-//                 0: two compares and a select each (traverse.cuh's)
+//                 0: two compares and a select each (the plane walk's)
 //   RF_LOP3       1: the near/far selects as lop3 on sign masks
 //   RF_STACK16    1: 16-byte stack entries
 //   RF_SMEM       the first RF_SMEM entries of the stack in shared memory (0:
-//                    none, 32: all of it), the rest in local memory
+//                    none, 32: all of it), the rest in local memory; also
+//                    the packed K8 forms' (walk_packed's kShared)
 //   RF_LDHINT     0: __ldg; 1: ld.global.cg (L2 only); 2: ld.global.ca
 //   RF_PERSIST    1: a grid that fills the card, whose warps take rays from
 //                    a counter; RF_REFILL_AT: idle lanes are refilled when
 //                    fewer than this many lanes of the warp are alive
 //   RF_BLOCK      threads per block; RF_MIN_BLOCKS: launch bound (0: none)
-//   RF_PLANE      1: the plane walk of traverse.cuh instead (one thread per
-//                    ray, as K6 and K8 walk)
+//   RF_PLANE      1: the plane walk below instead (one thread per ray)
+//   RF_SKY        K8's "full" mode (rf_probe_sky): 0: one thread per lane,
+//                    its rounds one after another, over the plane walk (the
+//                    kernel before the packed walk); 1: the same over the
+//                    packed walk; 2: one warp per lane, whose threads take
+//                    its rounds and fold their sums in round order by
+//                    shuffles (skyround.cu's form); 3: a grid that fills
+//                    the card, whose warps take 32 (lane, round) items at a
+//                    time from a counter and write each round's terms to a
+//                    scratch, then a kernel that folds them in round order
+//
+// The plane walk (namespace plane) reads the BVH's SoA planes: per node
+// visit six scalar box loads, then tri_count, then tri_offset or split_axis
+// and second_child, one visit per child and one pop per far child. It was
+// the walk of every kernel of the port until the packed tables (traverse2.cuh)
+// replaced it; it stays here as the baseline form of the probes.
 //
 // rf_probe_steps is the instrumented closest walk: one step per
 // warp-synchronous trip, counting per lane its record, leaf and pop steps,
 // per warp its trips and how many held leaf lanes, record lanes, both, and
 // pop lanes, and per block its start and end on %globaltimer.
+// rf_probe_sky_steps is K8's "full" mode as it ran over the plane walk (RF_SKY
+// 0), writing the nodes each (lane, round) visited and each block's SM, start
+// and end on %globaltimer.
 //
 // Built by the probe with the library's flags and -I csrc; not part of the
 // kernel library.
 
-#include "traverse2.cuh"
+#include "path.cuh"
 
 #ifndef RF_LOOP
 #define RF_LOOP 3
@@ -67,6 +87,119 @@
 #ifndef RF_PLANE
 #define RF_PLANE 0
 #endif
+#ifndef RF_SKY
+#define RF_SKY 2
+#endif
+
+// The plane walk: one thread's near-first walk over the SoA planes with a
+// 32-entry stack, the reference's own traversal
+// (src/pt/reference_path_tracer.wgsl:370-429) and the rule of the plain
+// torch walk (render/traverse.py _walk): the same visit order, the same slab
+// comparisons against the best t so far, and the same behaviour when the
+// stack is full (a push at depth 32 is dropped, the pointer still moves).
+namespace plane {
+
+struct SceneView {
+  const float* aabb_min;    // (N, 3)
+  const float* aabb_max;    // (N, 3)
+  const int* tri_offset;    // (N,)
+  const int* second_child;  // (N,)
+  const int* tri_count;     // (N,) 0 on interior nodes
+  const int* split_axis;    // (N,)
+  const float* tri_pos;     // (T, 3, 3) leaf order
+  int num_tris;
+};
+
+// Slab test (ray_intersection.cpp:101-136, render/intersect.py ray_aabb).
+__device__ __forceinline__ bool ray_aabb(const SceneView& s, int node, rf::Vec3 o, rf::Vec3 inv,
+                                         float t_max) {
+  const rf::Vec3 lo = rf::load3(s.aabb_min, node);
+  const rf::Vec3 hi = rf::load3(s.aabb_max, node);
+  const float nx = inv.x < 0.0f ? hi.x : lo.x, fx = inv.x < 0.0f ? lo.x : hi.x;
+  const float ny = inv.y < 0.0f ? hi.y : lo.y, fy = inv.y < 0.0f ? lo.y : hi.y;
+  const float nz = inv.z < 0.0f ? hi.z : lo.z, fz = inv.z < 0.0f ? lo.z : hi.z;
+  const float t0x = (nx - o.x) * inv.x, t1x = (fx - o.x) * inv.x;
+  const float t0y = (ny - o.y) * inv.y, t1y = (fy - o.y) * inv.y;
+  const float t0z = (nz - o.z) * inv.z, t1z = (fz - o.z) * inv.z;
+
+  const float tmin_xy = rf::max_nan(t0x, t0y);
+  const float tmax_xy = rf::min_nan(t1x, t1y);
+  const bool fail_xy = (t0x > t1y) || (t0y > t1x);
+  const bool fail_z = (tmin_xy > t1z) || (t0z > tmax_xy);
+  const float tmin = rf::max_nan(tmin_xy, t0z);
+  const float tmax = rf::min_nan(tmax_xy, t1z);
+  return !fail_xy && !fail_z && (tmin < t_max) && (tmax > 0.0f);
+}
+
+// Returns the leaf-order index of the accepted triangle (-1 if none); *t_best
+// holds its t (t_max if none), *visits_out the nodes visited. kAnyHit stops at
+// the first accepted triangle.
+template <bool kAnyHit>
+__device__ int walk(const SceneView& s, rf::Vec3 o, rf::Vec3 d, float t_max, float* t_best_out,
+                    int* visits_out) {
+  const rf::Vec3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+  float t_best = t_max;
+  int hit_tri = -1;
+  int visits = 0;
+  int stack[rf::kStackDepth];
+  int sp = 0;
+  int node = 0;
+  while (true) {
+    ++visits;
+    bool pop = true;
+    if (ray_aabb(s, node, o, inv, t_best)) {
+      const int count = s.tri_count[node];
+      if (count > 0) {
+        const int first = s.tri_offset[node];
+        for (int k = 0; k < count; ++k) {
+          const int tri = min(first + k, s.num_tris - 1);
+          float t, u, v;
+          if (rf::moller_trumbore(s.tri_pos + 9ll * tri, o, d, t_best, &t, &u, &v)) {
+            t_best = t;
+            hit_tri = tri;
+            if (kAnyHit) {
+              *t_best_out = t_best;
+              *visits_out = visits;
+              return hit_tri;
+            }
+          }
+        }
+      } else {
+        // Push the far child, descend into the near one (wgsl:408-418).
+        const bool axis_neg = rf::component(inv, s.split_axis[node]) < 0.0f;
+        const int second = s.second_child[node];
+        const int near_child = axis_neg ? second : node + 1;
+        const int far_child = axis_neg ? node + 1 : second;
+        if (sp < rf::kStackDepth) stack[sp] = far_child;
+        ++sp;
+        node = near_child;
+        pop = false;
+      }
+    }
+    if (pop) {
+      if (sp == 0) break;
+      --sp;
+      node = stack[min(sp, rf::kStackDepth - 1)];
+    }
+  }
+  *t_best_out = t_best;
+  *visits_out = visits;
+  return hit_tri;
+}
+
+__device__ __forceinline__ int closest_hit(const SceneView& s, rf::Vec3 o, rf::Vec3 d,
+                                           float t_max, float* t_out, int* visits_out) {
+  return walk<false>(s, o, d, t_max, t_out, visits_out);
+}
+
+__device__ __forceinline__ bool any_hit(const SceneView& s, rf::Vec3 o, rf::Vec3 d,
+                                        float t_max) {
+  float t;
+  int visits;
+  return walk<true>(s, o, d, t_max, &t, &visits) >= 0;
+}
+
+}  // namespace plane
 
 namespace {
 
@@ -370,9 +503,9 @@ __global__ void RF_BOUNDS walk_kernel(rf::PackedView s, const float* __restrict_
 #endif
 }
 
-// The plane walk of traverse.cuh, one thread per ray.
+// The plane walk, one thread per ray.
 template <bool kAnyHit>
-__global__ void RF_BOUNDS plane_kernel(rf::SceneView s, const float* __restrict__ origin,
+__global__ void RF_BOUNDS plane_kernel(plane::SceneView s, const float* __restrict__ origin,
                                        const float* __restrict__ direction,
                                        const float* __restrict__ t_max, int n,
                                        float* __restrict__ t_out, int* __restrict__ tri_out,
@@ -382,11 +515,11 @@ __global__ void RF_BOUNDS plane_kernel(rf::SceneView s, const float* __restrict_
   if (i >= n) return;
   const rf::Vec3 o = rf::load3(origin, i), d = rf::load3(direction, i);
   if (kAnyHit) {
-    occ_out[i] = rf::any_hit(s, o, d, t_max[i]);
+    occ_out[i] = plane::any_hit(s, o, d, t_max[i]);
   } else {
     float t;
     int visits;
-    tri_out[i] = rf::closest_hit(s, o, d, t_max[i], &t, &visits);
+    tri_out[i] = plane::closest_hit(s, o, d, t_max[i], &t, &visits);
     t_out[i] = t;
     visits_out[i] = visits;
   }
@@ -523,8 +656,8 @@ extern "C" int rf_probe_plane(const float* aabb_min, const float* aabb_max, cons
                               const float* origin, const float* direction, const float* t_max,
                               int n, float* t_out, int* tri_out, int* visits_out, bool* occ_out,
                               int any_hit, void* stream) {
-  const rf::SceneView s = rf::make_scene(aabb_min, aabb_max, tri_offset, second_child, tri_count,
-                                         split_axis, tri_pos, num_tris);
+  const plane::SceneView s{aabb_min, aabb_max, tri_offset, second_child, tri_count,
+                           split_axis, tri_pos, num_tris};
   const int grid = (n + RF_BLOCK - 1) / RF_BLOCK;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (any_hit) {
@@ -547,5 +680,215 @@ extern "C" int rf_probe_steps(const float* aabb_min, const float* aabb_max, cons
       rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
   steps_kernel<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       s, origin, direction, t_max, n, t_out, tri_out, lane_steps, warp_steps, block_t, block_sm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K8, the sky-round probe, in its "full" mode ----------------------------
+// Each form computes, for every lane i and round r, the closest hit of the
+// lane's primary ray of sample r and the sky of that ray, and adds
+// a0 + t (0 on a miss), then ((a0 + r) + g) + b, in round order: acc equals
+// skyround.cu's bit for bit.
+
+namespace {
+
+__device__ __forceinline__ rf::Pixel sky_pixel(const float* u, const float* v, const float* nb,
+                                               int i) {
+  return rf::Pixel{u[i], v[i], nb[2 * i], nb[2 * i + 1]};
+}
+
+__device__ __forceinline__ void sky_start(const rf::RegenParams& p, const rf::Pixel& px,
+                                          int sample, rf::Vec3* o, rf::Vec3* d) {
+  float nx, ny;
+  rf::noise_of(p, sample, px, &nx, &ny);
+  rf::primary(p, px, nx, ny, o, d);
+}
+
+// Round r of a lane over the packed walk: (t or 0, sky r, g, b).
+__device__ __forceinline__ float4 sky_terms(const rf::PackedView& s, const rf::RegenParams& p,
+                                            const rf::Pixel& px, int r) {
+  rf::Vec3 o, d;
+  sky_start(p, px, r, &o, &d);
+  float t;
+  const int tri = rf::walk_packed<false, 0, RF_SMEM>(s, o, d, p.t_max, &t);
+  const rf::Vec3 sky = rf::sky_radiance(p, d);
+  return make_float4(tri >= 0 ? t : 0.0f, sky.x, sky.y, sky.z);
+}
+
+__device__ __forceinline__ float sky_fold(float a0, float4 t) {
+  a0 = a0 + t.x;
+  return a0 + t.y + t.z + t.w;
+}
+
+// RF_SKY 0 (kSteps false): the kernel as it ran over the plane walk, one
+// thread per lane. kSteps: also the nodes of every (lane, round) and each
+// block's SM, start and end.
+template <bool kSteps>
+__global__ void __launch_bounds__(128) sky_plane_kernel(
+    plane::SceneView s, rf::RegenParams p, int n, int rounds, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ nb, float* __restrict__ acc,
+    int* __restrict__ visits_out, unsigned long long* __restrict__ block_t,
+    int* __restrict__ block_sm) {
+  if (kSteps && threadIdx.x == 0) {
+    block_t[2 * blockIdx.x] = globaltimer();
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    block_sm[blockIdx.x] = static_cast<int>(sm);
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const rf::Pixel px = sky_pixel(u, v, nb, i);
+    int sample = 0;
+    rf::Vec3 o, d;
+    sky_start(p, px, sample, &o, &d);
+    float a0 = 0.0f;
+    for (int r = 0; r < rounds; ++r) {
+      float t;
+      int visits;
+      const int tri = plane::closest_hit(s, o, d, p.t_max, &t, &visits);
+      if (kSteps) visits_out[static_cast<long long>(i) * rounds + r] = visits;
+      a0 = a0 + (tri >= 0 ? t : 0.0f);
+      const rf::Vec3 sky = rf::sky_radiance(p, d);
+      a0 = a0 + sky.x + sky.y + sky.z;
+      ++sample;
+      sky_start(p, px, sample, &o, &d);
+    }
+    acc[i] = a0;
+  }
+  if (kSteps) {
+    __syncthreads();
+    if (threadIdx.x == 0) block_t[2 * blockIdx.x + 1] = globaltimer();
+  }
+}
+
+// RF_SKY 1: the same over the packed walk.
+__global__ void __launch_bounds__(128) sky_lane_kernel(rf::PackedView s, rf::RegenParams p, int n,
+                                                       int rounds, const float* __restrict__ u,
+                                                       const float* __restrict__ v,
+                                                       const float* __restrict__ nb,
+                                                       float* __restrict__ acc) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const rf::Pixel px = sky_pixel(u, v, nb, i);
+  float a0 = 0.0f;
+  for (int r = 0; r < rounds; ++r) a0 = sky_fold(a0, sky_terms(s, p, px, r));
+  acc[i] = a0;
+}
+
+// RF_SKY 2: one warp per lane; thread k takes rounds k, k + 32, ...; each
+// group of 32 rounds is folded in round order by shuffles.
+__global__ void __launch_bounds__(128) sky_warp_kernel(rf::PackedView s, rf::RegenParams p, int n,
+                                                       int rounds, const float* __restrict__ u,
+                                                       const float* __restrict__ v,
+                                                       const float* __restrict__ nb,
+                                                       float* __restrict__ acc) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int k = threadIdx.x & 31;
+  if (i >= n) return;
+  const rf::Pixel px = sky_pixel(u, v, nb, i);
+  float a0 = 0.0f;
+  for (int base = 0; base < rounds; base += 32) {
+    float4 mine = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (base + k < rounds) mine = sky_terms(s, p, px, base + k);
+    const int m = min(32, rounds - base);
+    for (int j = 0; j < m; ++j) {
+      const float4 t = make_float4(__shfl_sync(kFullWarp, mine.x, j),
+                                   __shfl_sync(kFullWarp, mine.y, j),
+                                   __shfl_sync(kFullWarp, mine.z, j),
+                                   __shfl_sync(kFullWarp, mine.w, j));
+      a0 = sky_fold(a0, t);
+    }
+  }
+  if (k == 0) acc[i] = a0;
+}
+
+// RF_SKY 3: warps take 32 (lane, round) items at a time from the counter,
+// lane-major (item j is round j % rounds of lane j / rounds), and write each
+// round's terms to the scratch; sky_fold_kernel adds them in round order.
+__global__ void __launch_bounds__(128) sky_items_kernel(
+    rf::PackedView s, rf::RegenParams p, int n, int rounds, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ nb, float4* __restrict__ scratch,
+    unsigned* __restrict__ counter) {
+  const unsigned total = static_cast<unsigned>(n) * static_cast<unsigned>(rounds);
+  const int k = threadIdx.x & 31;
+  while (true) {
+    unsigned base = 0;
+    if (k == 0) base = atomicAdd(counter, 32u);
+    base = __shfl_sync(kFullWarp, base, 0);
+    if (base >= total) break;
+    const unsigned j = base + k;
+    if (j < total) {
+      const int i = static_cast<int>(j / rounds);
+      scratch[j] = sky_terms(s, p, sky_pixel(u, v, nb, i), static_cast<int>(j % rounds));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128) sky_fold_kernel(int n, int rounds,
+                                                       const float4* __restrict__ scratch,
+                                                       float* __restrict__ acc) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float a0 = 0.0f;
+  const float4* row = scratch + static_cast<long long>(i) * rounds;
+  for (int r = 0; r < rounds; ++r) a0 = sky_fold(a0, row[r]);
+  acc[i] = a0;
+}
+
+}  // namespace
+
+// K8's "full" mode in the form RF_SKY: the six SoA planes, the triangle
+// positions, the packed tables, the triangle count, then the probe's
+// parameters and lanes, acc, and for RF_SKY 3 a scratch of n x rounds x 16
+// bytes and a zeroed counter.
+extern "C" int rf_probe_sky(const float* aabb_min, const float* aabb_max, const int* tri_offset,
+                            const int* second_child, const int* tri_count, const int* split_axis,
+                            const float* tri_pos, const int* nodes2, const float* tri_pos4,
+                            int num_tris, const rf::RegenParams* params, int n, int rounds,
+                            const float* u, const float* v, const float* nb, float* acc,
+                            float* scratch, unsigned* counter, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rf::PackedView s =
+      rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
+#if RF_SKY == 0
+  const plane::SceneView ps{aabb_min, aabb_max, tri_offset, second_child, tri_count,
+                            split_axis, tri_pos, num_tris};
+  sky_plane_kernel<false><<<(n + 127) / 128, 128, 0, st>>>(ps, *params, n, rounds, u, v, nb, acc,
+                                                           nullptr, nullptr, nullptr);
+#elif RF_SKY == 1
+  sky_lane_kernel<<<(n + 127) / 128, 128, 0, st>>>(s, *params, n, rounds, u, v, nb, acc);
+#elif RF_SKY == 2
+  sky_warp_kernel<<<(n + 3) / 4, 128, 0, st>>>(s, *params, n, rounds, u, v, nb, acc);
+#else
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sky_items_kernel, 128, 0);
+  float4* items = reinterpret_cast<float4*>(scratch);
+  sky_items_kernel<<<sms * per_sm, 128, 0, st>>>(s, *params, n, rounds, u, v, nb, items, counter);
+  sky_fold_kernel<<<(n + 127) / 128, 128, 0, st>>>(n, rounds, items, acc);
+#endif
+  (void)second_child;
+  (void)split_axis;
+  (void)tri_pos;
+  (void)scratch;
+  (void)counter;
+  (void)s;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// RF_SKY 0 instrumented: visits (n, rounds) int32, block_t (blocks, 2) and
+// block_sm (blocks,) for blocks of 128 lanes.
+extern "C" int rf_probe_sky_steps(const float* aabb_min, const float* aabb_max,
+                                  const int* tri_offset, const int* second_child,
+                                  const int* tri_count, const int* split_axis,
+                                  const float* tri_pos, int num_tris,
+                                  const rf::RegenParams* params, int n, int rounds,
+                                  const float* u, const float* v, const float* nb, float* acc,
+                                  int* visits, unsigned long long* block_t, int* block_sm,
+                                  void* stream) {
+  const plane::SceneView ps{aabb_min, aabb_max, tri_offset, second_child, tri_count,
+                            split_axis, tri_pos, num_tris};
+  sky_plane_kernel<true><<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      ps, *params, n, rounds, u, v, nb, acc, visits, block_t, block_sm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
-"""The ray queries K1 and K2 under the probe: what a warp's walk spends its
-steps on, and other forms of the walk timed in turns with the shipped
-kernels.
+"""The ray queries K1 and K2 and the sky-round probe K8 under the probe: what
+a warp's walk spends its steps on, and other forms of the walk timed in
+turns with the shipped kernels.
 
     python -m rayfinder_tpu_torch.prof.walk_probe steps [--scale 26]
     python -m rayfinder_tpu_torch.prof.walk_probe forms [--scale 26] [--rounds 2] [NAME ...]
+    python -m rayfinder_tpu_torch.prof.walk_probe sky-steps [--scale 26]
+    python -m rayfinder_tpu_torch.prof.walk_probe sky-forms [--scale 26] [--rounds 2] [NAME ...]
 
 On 131,072 camera rays of the bench view and 131,072 random rays inside
 courtyard_scene(scale), the two halves apart and together:
@@ -22,6 +24,20 @@ checks every output of each against the shipped kernels' (t, tri, nodes
 visited and occlusion, to T_MAX and to per-ray bounds), and times K1 and K2
 of each form and of the shipped kernels, in turns, over `rounds` rounds, on
 all rays and on each half alone.
+
+On K8's lanes (prof/prof_skyround.py: 65,536 lanes x 64 rounds, for the
+Duck probe's camera and the bench camera), in its "full" mode:
+
+`sky-steps` runs K8 as it ran over the plane walk, one thread per lane
+(walk_probe.cu rf_probe_sky_steps), and prints as JSON the nodes each lane
+visits per round and in all, the lane utilisation per warp (nodes over 32
+x the sum over rounds of the warp's longest walk), the blocks resident per
+SM and the warps they hold, and when the blocks start and end.
+
+`sky-forms` builds each named form of K8 (SKY_FORMS; all by default),
+checks each one's acc against the shipped kernel's bit for bit, and times
+each form and the shipped kernel in turns. With --check-only it builds and
+checks the forms and times nothing.
 
 Needs a CUDA device and nvcc; builds into the kernel library's build
 directory. Every time is a mean of per-launch CUDA event pairs and names
@@ -77,6 +93,17 @@ FORMS = {
     "persistent, refill at 1, local stack": _LOCAL + ["-DRF_PERSIST=1", "-DRF_REFILL_AT=1"],
     "11 blocks per SM, local stack": _LOCAL + ["-DRF_MIN_BLOCKS=11"],
 }
+# name -> macros of K8's forms (walk_probe.cu RF_SKY).
+SKY_FORMS = {
+    "lane per thread, plane walk": ["-DRF_SKY=0"],
+    "lane per thread, local stack": ["-DRF_SKY=1", "-DRF_SMEM=0"],
+    "lane per thread, 16 shared entries": ["-DRF_SKY=1", "-DRF_SMEM=16"],
+    "warp per lane, local stack": ["-DRF_SKY=2", "-DRF_SMEM=0"],
+    "warp per lane, 8 shared entries": ["-DRF_SKY=2", "-DRF_SMEM=8"],
+    "warp per lane, 16 shared entries": ["-DRF_SKY=2", "-DRF_SMEM=16"],
+    "items from a counter, local stack": ["-DRF_SKY=3", "-DRF_SMEM=0"],
+    "items from a counter, 16 shared entries": ["-DRF_SKY=3", "-DRF_SMEM=16"],
+}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -84,6 +111,8 @@ _ARGTYPES = {
     "rf_probe_any": [_P] * 6 + [_I] + [_P, _P, _P, _I, _P, _P, _P],
     "rf_probe_plane": [_P] * 7 + [_I] + [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     "rf_probe_steps": [_P] * 6 + [_I] + [_P, _P, _P, _I] + [_P] * 6 + [_P],
+    "rf_probe_sky": [_P] * 9 + [_I] + [_P, _I, _I] + [_P] * 7,
+    "rf_probe_sky_steps": [_P] * 7 + [_I] + [_P, _I, _I] + [_P] * 8,
 }
 
 
@@ -132,12 +161,12 @@ def query_rays(camera, dev, seed: int = 0):
             torch.cat([cd, torch.from_numpy(rd).to(dev)]).contiguous())
 
 
-def build(forms: dict) -> dict:
+def build(forms: dict, prefix: str = "walk_probe") -> dict:
     """One nvcc per form, all started together; returns {name: CDLL}."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for k, (name, flags) in enumerate(forms.items()):
-        so = _build.BUILD_DIR / f"walk_probe_{k}.so"
+        so = _build.BUILD_DIR / f"{prefix}_{k}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), *flags, "-shared",
                "-o", str(so), str(SOURCE)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -302,13 +331,163 @@ def run_steps(scene, o, d) -> dict:
     return res
 
 
+def _sky_scene_args(scene, dev) -> list:
+    """The scene arguments of rf_probe_sky: the planes, the triangle
+    positions, the packed tables, the triangle count."""
+    planes = _build.scene_args(scene, dev)[:7]
+    packed = _build.packed_args(scene, dev)
+    return planes + packed[4:6] + [scene.num_triangles]
+
+
+def _sky_params(probe, rounds: int):
+    from ..ops.regen import _params
+    from .prof_skyround import T_MAX as SKY_T_MAX
+
+    _, camera, sky, _, _, _, inv_dims = probe
+    return _params(camera, sky, inv_dims, 0, 256, rounds, SKY_T_MAX)
+
+
+def _sky_runner(lib, flags, scene, probe, rounds: int):
+    """A callable that launches the form's K8 "full" and returns acc (the
+    items form with its scratch and a zeroed counter, as K4's wrapper)."""
+    u, v, nb = probe[3:6]
+    dev, n = u.device, u.shape[0]
+    args = _sky_scene_args(scene, dev)
+    params = _sky_params(probe, rounds)
+    items = "-DRF_SKY=3" in flags
+    scratch = torch.empty(n * rounds * 4 if items else 4, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def run():
+        acc = torch.empty(n, device=dev)
+        if items:
+            counter.zero_()
+        err = lib.rf_probe_sky(*args, ctypes.addressof(params), n, rounds, u.data_ptr(),
+                               v.data_ptr(), nb.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+                               counter.data_ptr(), _build.stream_of(dev))
+        _build.raise_on_error(err, "rf_probe_sky")
+        return acc
+
+    return run
+
+
+def run_sky_forms(scene, names, rounds: int, label: str, check_only: bool) -> dict:
+    """Check the named K8 forms against the shipped kernel ("full", both
+    cameras, ROUNDS rounds) and time them and it in turns. Returns
+    {camera: {name: [ms per round of turns]}}."""
+    from ..ops.skyround import sky_round
+    from . import prof_skyround
+
+    dev = torch.device("cuda", 0)
+    forms = {name: SKY_FORMS[name] for name in names}
+    libs = build(forms, prefix="sky_probe")
+    times = {}
+    for camera in prof_skyround.CAMERAS:
+        probe = prof_skyround.probe_args(scene, dev, camera)
+        runs = {name: _sky_runner(libs[name], forms[name], scene, probe, prof_skyround.ROUNDS)
+                for name in forms}
+        runs["shipped kernel"] = lambda probe=probe: sky_round(*probe, prof_skyround.ROUNDS,
+                                                               "full")
+        want = runs["shipped kernel"]()
+        for name in forms:
+            if not torch.equal(runs[name](), want):
+                raise RuntimeError(f"K8 form {name!r} differs from the shipped kernel")
+        print(f"K8 full, {camera} camera: every form's acc equals the shipped kernel's "
+              f"[{label}]", flush=True)
+        if check_only:
+            continue
+        times[camera] = {name: [] for name in runs}
+        for _ in range(rounds):
+            for name, fn in runs.items():
+                ms = time_ms(fn, 5)
+                times[camera][name].append(ms)
+                print(f"K8 full, {camera} camera, {name}: {ms:.4f} ms [{label}]", flush=True)
+    return times
+
+
+def run_sky_steps(scene) -> dict:
+    """K8 "full" over the plane walk, instrumented, for both cameras."""
+    from ..ops.skyround import sky_round
+    from . import prof_skyround
+
+    dev = torch.device("cuda", 0)
+    lib = build({"sky steps": ["-DRF_SKY=0"]}, prefix="sky_steps")["sky steps"]
+    rounds = prof_skyround.ROUNDS
+    res = {}
+    for camera in prof_skyround.CAMERAS:
+        probe = prof_skyround.probe_args(scene, dev, camera)
+        u, v, nb = probe[3:6]
+        n = u.shape[0]
+        blocks = -(-n // 128)
+        params = _sky_params(probe, rounds)
+        acc = torch.empty(n, device=dev)
+        visits = torch.zeros(n, rounds, dtype=torch.int32, device=dev)
+        block_t = torch.zeros(blocks, 2, dtype=torch.int64, device=dev)
+        block_sm = torch.zeros(blocks, dtype=torch.int32, device=dev)
+        for _ in range(2):  # the second launch is the one read
+            torch.cuda.synchronize()
+            err = lib.rf_probe_sky_steps(
+                *_build.scene_args(scene, dev)[:7], scene.num_triangles,
+                ctypes.addressof(params), n, rounds, u.data_ptr(), v.data_ptr(), nb.data_ptr(),
+                acc.data_ptr(), visits.data_ptr(), block_t.data_ptr(), block_sm.data_ptr(),
+                _build.stream_of(dev))
+            _build.raise_on_error(err, "rf_probe_sky_steps")
+            torch.cuda.synchronize()
+        if not torch.equal(acc, sky_round(*probe, rounds, "full")):
+            raise RuntimeError("the instrumented K8 differs from the shipped kernel")
+        hits = sum(int(intersect_closest_kernel(
+            scene, *prof_skyround.sample_rays(probe, r), prof_skyround.T_MAX)[0].sum())
+            for r in range(rounds))
+        vis = visits.cpu().numpy().astype(np.int64)
+        warp_max = vis.reshape(-1, 32, rounds).max(1)  # (warps, rounds)
+        bt = block_t.cpu().numpy()
+        sm = block_sm.cpu().numpy()
+        t0 = bt[:, 0].min()
+        begin, end = (bt[:, 0] - t0) / 1e6, (bt[:, 1] - t0) / 1e6
+        per_sm = []
+        for s_id in np.unique(sm):
+            ev = sorted([(b, 1) for b in begin[sm == s_id]] + [(e, -1) for e in end[sm == s_id]],
+                        key=lambda x: (x[0], x[1]))
+            live = peak = 0
+            for _, step in ev:
+                live += step
+                peak = max(peak, live)
+            per_sm.append(peak)
+        res[camera] = {
+            "lanes": n, "rounds": rounds,
+            "nodes_per_lane_round": float(vis.mean()), "nodes_max": int(vis.max()),
+            "nodes_per_lane": float(vis.sum(1).mean()),
+            "share_of_lane_rounds_that_hit": hits / (n * rounds),
+            "lane_utilisation_per_warp": float(vis.sum() / (32 * warp_max.sum())),
+            "warp_nodes_per_round_mean": float(warp_max.mean()),
+            "blocks": {
+                "count": int(blocks), "sms": int(len(per_sm)),
+                "resident_blocks_per_sm_max": int(max(per_sm)),
+                "resident_blocks_per_sm_mean_of_max": float(np.mean(per_sm)),
+                "resident_warps_per_sm_max": 4 * int(max(per_sm)),
+                "ms_last_start": float(begin.max()), "ms_last_end": float(end.max()),
+                "ms_end_percentiles": {str(q): float(np.percentile(end, q))
+                                       for q in (1, 10, 25, 50, 75, 90, 99)},
+                "block_ms_sum": float((end - begin).sum()),
+                "block_ms_mean": float((end - begin).mean()),
+                "block_ms_max": float((end - begin).max()),
+                "resident_at_ms": {f"{g:.3f}": int(((begin <= g) & (end > g)).sum())
+                                   for g in np.linspace(0, end.max(), 21)},
+            },
+        }
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("what", choices=("steps", "forms"))
-    ap.add_argument("names", nargs="*", help="forms to time (default: all of FORMS)")
+    ap.add_argument("what", choices=("steps", "forms", "sky-steps", "sky-forms"))
+    ap.add_argument("names", nargs="*",
+                    help="forms to time (default: all of FORMS, or of SKY_FORMS)")
     ap.add_argument("--scale", type=int, default=26)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--check-only", action="store_true",
+                    help="sky-forms: build and check the forms, time nothing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("walk_probe: needs a CUDA device (the kernels run only there)")
@@ -319,6 +498,19 @@ def main(argv=None) -> None:
     label = card()
     flat, textures = courtyard_scene(args.scale, textured=False)
     scene = build_device_scene(flat, textures=textures, device=dev)
+    if args.what.startswith("sky-"):
+        print(f"courtyard_scene({args.scale}): {scene.num_triangles} triangles; K8's lanes "
+              f"[{label}]", flush=True)
+        if args.what == "sky-steps":
+            print(json.dumps({"sky_steps": run_sky_steps(scene), "card": label}), flush=True)
+            return
+        unknown = [name for name in args.names if name not in SKY_FORMS]
+        if unknown:
+            raise SystemExit(f"walk_probe: unknown K8 forms {unknown}; known: {list(SKY_FORMS)}")
+        times = run_sky_forms(scene, args.names or list(SKY_FORMS), args.rounds, label,
+                              args.check_only)
+        print(json.dumps({"sky_forms_ms": times, "card": label}), flush=True)
+        return
     o, d = query_rays(create_camera(*BENCH_CAMERA, 1.0), dev)
     print(f"courtyard_scene({args.scale}): {scene.num_triangles} triangles; {N_CAMERA} camera "
           f"and {N_RANDOM} random rays [{label}]", flush=True)

@@ -11,8 +11,8 @@ Counterpart of `rayfinder_tpu.render.intersect`:
 
 Every dot and cross product is written out component by component, left to
 right, in the order XLA evaluates `jnp.sum(..., -1)` and `jnp.cross`; the
-CUDA kernels (csrc/traverse.cuh) use the same order, so the three agree to
-the bit. Vectors are (B, 3) tensors; `_x/_y/_z` helpers pick components.
+CUDA kernels (csrc/traverse.cuh, traverse2.cuh) use the same order, so the
+three agree to the bit. Vectors are (B, 3) tensors; `_x/_y/_z` helpers pick components.
 """
 
 from __future__ import annotations

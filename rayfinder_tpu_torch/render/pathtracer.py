@@ -37,7 +37,7 @@ import torch
 from ..ops.regen import trace_regen, trace_regen_reference
 from ..ops.regen_segs import SEGS, trace_regen_segs, trace_regen_segs_reference
 from ..ops.regen_shaded import (
-    TILE, samples_per_call, trace_regen_shaded, trace_regen_shaded_reference,
+    TILE, lanes_per_call, samples_per_call, trace_regen_shaded, trace_regen_shaded_reference,
 )
 from ..sky.model import SkyState
 from .camera import Camera, primary_ray
@@ -291,8 +291,9 @@ def _accumulate_regen_inkernel(d: _Dispatch, accum, lanes, floor, count_rays):
     first compacted phase are busy; then the busy lanes compact, and one K4
     call per further phase runs each 128-lane tile down to a per-tile live
     floor, followed by a flush and a compaction; the last K4 call runs to
-    floor 0. Returns the new accumulation buffer and, with count_rays, the
-    exact [closest, shadow] ray counts: K4's own, plus phase 0's.
+    floor 0, in chunks of lanes where one call's scratch would pass its cap
+    (_last_call). Returns the new accumulation buffer and, with count_rays,
+    the exact [closest, shadow] ray counts: K4's own, plus phase 0's.
 
     The per-tile floor is nxt // (tiles of the current phase), so the
     survivors always fit the next phase; the JAX loop divides by cur // 128,
@@ -311,9 +312,30 @@ def _accumulate_regen_inkernel(d: _Dispatch, accum, lanes, floor, count_rays):
         lrad = d.shaded_call(st, lanes, lrad, _tile_floor(cur, nxt), rays)
         lrad_full = _flush(lrad_full, pix, lrad, batch)
         pix, lrad = _compact_state(d, st, lanes, nxt, pix, batch)
-    lrad = d.shaded_call(st, lanes, lrad, 0, rays)
+    lrad = _last_call(d, st, lanes, lrad, rays)
     out = _flush(lrad_full, pix, lrad, batch)
     return (out, rays) if count_rays else out
+
+
+def _last_call(d: _Dispatch, st, lanes, lrad, rays):
+    """The hybrid's last K4 call, at floor 0 over lanes in flight: one call,
+    or one call per chunk of lanes_per_call(nf) lanes where one call's
+    scratch would pass its cap. At floor 0 no lane is tied to its tile's
+    other lanes, and a chunk holds whole tiles, so each lane's outputs are
+    those of one call; the lane state and lrad are taken chunk by chunk and
+    the rays of every chunk added to `rays`. Returns lrad."""
+    batch = lrad.shape[0]
+    per_call = lanes_per_call(d.nf)
+    if per_call >= batch:
+        return d.shaded_call(st, lanes, lrad, 0, rays)
+    parts = []
+    for first in range(0, batch, per_call):
+        rows = slice(first, first + per_call)
+        part = {k: x[rows] for k, x in st.items()}
+        parts.append((part, d.shaded_call(part, {k: x[rows] for k, x in lanes.items()},
+                                          lrad[rows], 0, rays)))
+    st.update({k: torch.cat([part[k] for part, _ in parts]) for k in st})
+    return torch.cat([out for _, out in parts])
 
 
 def _shaded_runs(d: _Dispatch, lanes, lrad, rays):

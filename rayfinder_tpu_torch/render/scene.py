@@ -10,8 +10,9 @@ Texels are stored as the int32 view of the packed BGRA uint32 words, because
 torch's uint32 supports few operations; shifts and masks on the int32 view
 (`(w >> 16) & 0xFF`) give the same bytes.
 
-Beside the SoA node planes, the upload builds the packed walk tables of the
-path kernels K3, K4 and K5 (csrc/traverse2.cuh) from them:
+Beside the SoA node planes, the upload builds the packed walk tables that
+every CUDA kernel that walks the BVH reads (K1-K6, K8; csrc/traverse2.cuh)
+from them:
 
 * `bvh_nodes2`, (M, 16) int32: one aligned 64-byte record per interior node,
   in node order (record r is the r-th interior node; the root, when it is
@@ -26,7 +27,7 @@ path kernels K3, K4 and K5 (csrc/traverse2.cuh) from them:
   order, each padded with a zero to 16 bytes.
 
 A leaf is a node with `tri_count > 0`, as the walks read it. The root's own
-box stays in the SoA planes, which the other walks read.
+box stays in the SoA planes, which the plain torch walk reads.
 
 The entry points put the scene on the card unless the caller names another
 device. They take the port's `FlattenedScene` and `Texture` and the JAX
@@ -78,7 +79,7 @@ class DeviceScene:
     # the texture index as bitcast f32.
     tri_attrs: torch.Tensor  # (T, 25) f32
 
-    # Packed walk tables of K3, K4 and K5, built from the planes above at
+    # Packed walk tables of the kernels' walk, built from the planes above at
     # upload (module docstring).
     bvh_nodes2: torch.Tensor  # (M, 16) i32, one record per interior node
     tri_pos4: torch.Tensor  # (T, 12) f32

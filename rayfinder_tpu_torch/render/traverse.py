@@ -9,21 +9,21 @@ reference_path_tracer.wgsl:370-429). The visit order, the `ray_aabb` bound
 is dropped, the pointer still moves) are those of the JAX loop, so `t`,
 `tri` and `nodes_visited` agree with it exactly.
 
-This is the plain version of the traversal that the CUDA kernels run per
-thread (csrc/traverse.cuh). Here all rays step in lockstep: one step is one
-node visit, and a leaf's triangles are tested within the step that enters
-it; rays that finish leave the batch. With `count`, it also counts each
-ray's leaves entered and triangles tested, as the counted walk K6
-(csrc/counted.cu) does. Inside `with count_work() as work`, every walk
-counts, and `work` sums the work of all of them: what a kernel's bound is
-computed from.
+This is the specification of the traversal that the CUDA kernels run per
+thread. Here all rays step in lockstep: one step is one node visit, and a
+leaf's triangles are tested within the step that enters it; rays that
+finish leave the batch. With `count`, it also counts each ray's leaves
+entered and triangles tested, the counts the counted walk K6 returns.
+Inside `with count_work() as work`, every walk counts, and `work` sums the
+work of all of them: what a kernel's bound is computed from.
 
 `intersect_packed` walks the same tree over the packed walk tables
-(`bvh_nodes2`, `tri_pos4`) by the rule of the path kernels' walk
-(csrc/traverse2.cuh): two children's slab tests per record, the far child
-pushed with its entry distance, a popped entry taken iff that distance is
-below the best t. It gives the same t, tri and occlusion as the walk above,
-and only the tests use it, to hold the packing and the rule on the CPU.
+(`bvh_nodes2`, `tri_pos4`) by the rule of the kernels' walk
+(csrc/traverse2.cuh walk_packed): two children's slab tests per record, the
+far child pushed with its entry distance, a popped entry taken iff that
+distance is below the best t. It gives the same t, tri, occlusion and
+counts as the walk above, and is the plain version of the ray queries K1
+and K2; with `count` it counts as the kernels' counting level 2 does.
 """
 
 from __future__ import annotations
@@ -197,32 +197,44 @@ def intersect_any(scene: DeviceScene, origin, direction, t_max):
     return _traverse(scene, origin, direction, t_max, any_hit=True)[0]
 
 
-def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool = False):
+def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool = False,
+                     count: bool = False):
     """The walk of csrc/traverse2.cuh over `scene.bvh_nodes2` and
     `scene.tri_pos4`, in lockstep: one step processes a record, tests a
     leaf or pops one stack entry. origin/direction (B, 3) f32; t_max float
     or (B,) f32.
 
     Returns (hit, t, tri, slab_tests), each (B,); for a closest-hit walk
-    slab_tests equals `intersect_closest`'s nodes_visited."""
+    slab_tests equals `intersect_closest`'s nodes_visited. With count, the
+    last is (B, 3) int32: slab tests, leaf entries taken and triangles
+    tested (walk_packed's counting level 2; for a closest-hit walk
+    `intersect_closest_counted`'s counts)."""
     batch = origin.shape[0]
     dev = origin.device
     inv_dir = 1.0 / direction
     t_full = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(batch).clone()
     tri_full = torch.full((batch,), -1, dtype=torch.int32, device=dev)
     tests_full = torch.ones(batch, dtype=torch.int32, device=dev)
+    leaves_full = torch.zeros(batch, dtype=torch.int32, device=dev)
+    tris_full = torch.zeros(batch, dtype=torch.int32, device=dev)
+
+    def result():
+        work = torch.stack([tests_full, leaves_full, tris_full], 1) if count else tests_full
+        return tri_full >= 0, t_full, tri_full, work
+
     if batch == 0:
-        return tri_full >= 0, t_full, tri_full, tests_full
+        return result()
 
     nodes = scene.bvh_nodes2
     lane = torch.arange(batch, device=dev)
     o, d, inv = origin, direction, inv_dir
     neg = inv < 0.0
     t_best, hit_tri, tests = t_full.clone(), tri_full.clone(), tests_full.clone()
+    leaves, tris_tested = leaves_full.clone(), tris_full.clone()
     # The root: its box from the SoA planes, then record 0 or its leaf.
     take = ray_aabb_entry(o, inv, neg, scene.bvh_aabb_min[0], scene.bvh_aabb_max[0]) < t_best
-    count = torch.where(take, scene.bvh_tri_count[0].long(), 0)
-    ref = torch.where(count > 0, scene.bvh_tri_offset[0].long(), 0)
+    size = torch.where(take, scene.bvh_tri_count[0].long(), 0)
+    ref = torch.where(size > 0, scene.bvh_tri_offset[0].long(), 0)
     sp = torch.zeros(batch, dtype=torch.long, device=dev)
     stack_ref = torch.zeros(batch, STACK_DEPTH, dtype=torch.long, device=dev)
     stack_count = torch.zeros(batch, STACK_DEPTH, dtype=torch.long, device=dev)
@@ -230,18 +242,20 @@ def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
 
     while lane.numel():
-        leaf = torch.nonzero(~done & take & (count > 0))[:, 0]
-        rec = torch.nonzero(~done & take & (count <= 0))[:, 0]
+        leaf = torch.nonzero(~done & take & (size > 0))[:, 0]
+        rec = torch.nonzero(~done & take & (size <= 0))[:, 0]
         pop = torch.nonzero(~done & ~take)[:, 0]
 
         if leaf.numel():
-            n_tri = count[leaf]
+            n_tri = size[leaf]
             tris = (ref[leaf, None] + torch.arange(int(n_tri.max()), device=dev)).clamp(
                 max=scene.num_triangles - 1)
             v = scene.tri_pos4[tris]  # (leaves, max_leaf, 12)
-            t_best[leaf], hit_tri[leaf], done[leaf], _ = _test_leaves(
+            t_best[leaf], hit_tri[leaf], done[leaf], tested = _test_leaves(
                 o[leaf], d[leaf], tris, v[..., 0:3], v[..., 4:7], v[..., 8:11], n_tri,
                 t_best[leaf], hit_tri[leaf], done[leaf], any_hit)
+            leaves[leaf] += 1
+            tris_tested[leaf] += tested.to(torch.int32)
             take[leaf] = False
 
         if rec.numel():
@@ -263,7 +277,7 @@ def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool
             stack_ref[slot], stack_count[slot], stack_key[slot] = (x[push] for x in far)
             sp[rec] += 1
             ref[rec] = torch.where(axis_neg, right_ref, left_ref)
-            count[rec] = torch.where(axis_neg, right_count, left_count)
+            size[rec] = torch.where(axis_neg, right_count, left_count)
             take[rec] = torch.where(axis_neg, key_r, key_l) < t_best[rec]
 
         if pop.numel():
@@ -272,18 +286,20 @@ def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool
             pop = pop[~empty]
             sp[pop] -= 1
             slot = (pop, sp[pop].clamp(max=STACK_DEPTH - 1))
-            ref[pop], count[pop] = stack_ref[slot], stack_count[slot]
+            ref[pop], size[pop] = stack_ref[slot], stack_count[slot]
             take[pop] = stack_key[slot] < t_best[pop]
 
         n_done = int(done.sum())
         if 4 * n_done >= lane.numel():
             fin = lane[done]
             t_full[fin], tri_full[fin], tests_full[fin] = t_best[done], hit_tri[done], tests[done]
+            leaves_full[fin], tris_full[fin] = leaves[done], tris_tested[done]
             keep = ~done
             lane, o, d, inv, neg = lane[keep], o[keep], d[keep], inv[keep], neg[keep]
             t_best, hit_tri, tests = t_best[keep], hit_tri[keep], tests[keep]
-            take, count, ref, sp = take[keep], count[keep], ref[keep], sp[keep]
+            leaves, tris_tested = leaves[keep], tris_tested[keep]
+            take, size, ref, sp = take[keep], size[keep], ref[keep], sp[keep]
             stack_ref, stack_count, stack_key = stack_ref[keep], stack_count[keep], stack_key[keep]
             done = done[keep]
 
-    return tri_full >= 0, t_full, tri_full, tests_full
+    return result()

@@ -175,6 +175,32 @@ def test_count_work_sums_every_plain_walk(scenes):
     assert work["any"][3] <= work["closest"][3]
 
 
+@pytest.mark.parametrize("case", ["courtyard", "deep"])
+def test_packed_walk_counts_equal_the_counted_walk(scenes, case):
+    """intersect_packed(count=True), the plain form of the kernels' counting
+    rule (walk_packed at level 2: a slab test per node, a leaf entry taken,
+    a Moller-Trumbore call), gives intersect_closest_counted's t, tri and
+    three counts on every ray: on this file's rays and on the 40-level chain
+    that overflows the 32-entry stack, to T_MAX and to per-ray bounds."""
+    from torch_deep_scene import deep_rays, deep_scene
+
+    if case == "courtyard":
+        scene, (o, d) = scenes[0], _rays(2048)
+    else:
+        flat, bvh = deep_scene()
+        scene, (o, d) = build_device_scene(flat, bvh=bvh, device="cpu"), deep_rays(2048, seed=9)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    bound = torch.from_numpy(np.random.default_rng(3).uniform(0.5, 12.0, o.shape[0])
+                             .astype(np.float32))
+    for t_max in (T_MAX, bound):
+        got = traverse.intersect_packed(scene, o, d, t_max, count=True)
+        want = traverse.intersect_closest_counted(scene, o, d, t_max)
+        assert got[3].shape == (o.shape[0], 3) and got[3].dtype == torch.int32
+        assert int(got[3][:, 2].sum()) > 0
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 def test_walk_operations_count_slab_and_triangle_tests():
     assert walk_operations(3, 2) == 3 * SLAB_TEST_OPS + 2 * TRIANGLE_TEST_OPS
     assert (SLAB_TEST_OPS, TRIANGLE_TEST_OPS) == (25, 60)

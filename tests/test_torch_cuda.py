@@ -57,10 +57,11 @@ def test_walk_kernels_match_plain_walk_exactly(dev, scene8, name):
 @pytest.mark.parametrize("scene_name", ["courtyard8", "deep", "one_triangle"])
 def test_walk_kernels_equal_the_plane_walk(dev, scene8, scene_name):
     """K1 and K2 walk the packed tables; t, tri, nodes visited and occlusion
-    must be the plane walk's bit for bit: against the plane-walk kernel K6
-    (t, tri, nodes), the plain plane walk (occlusion), and their own plain
-    version, to T_MAX and to per-ray bounds; on the courtyard, on a BVH
-    deeper than the 32-entry stack and on a scene whose root is a leaf."""
+    must be the plane walk's bit for bit: against the plain plane walk (t,
+    tri, nodes, occlusion), the counted walk K6 (t, tri, nodes), and their
+    own plain version, to T_MAX and to per-ray bounds; on the courtyard, on
+    a BVH deeper than the 32-entry stack and on a scene whose root is a
+    leaf."""
     from torch_deep_scene import deep_rays, deep_scene
 
     from rayfinder_tpu_torch.ops import counted, walk
@@ -90,6 +91,8 @@ def test_walk_kernels_equal_the_plane_walk(dev, scene8, scene_name):
         _, t6, tri6, counts6 = counted.intersect_closest_counted(scene, o, d, t_max)
         assert torch.equal(t, t6) and torch.equal(tri, tri6)
         assert torch.equal(visits, counts6[:, 0])
+        for a, b in zip((hit, t, tri, visits), traverse.intersect_closest(scene, o, d, t_max)):
+            assert torch.equal(a, b)
         assert torch.equal(occ, traverse.intersect_any(scene, o, d, t_max))
         for a, b in zip((hit, t, tri, visits),
                         walk.intersect_closest_reference(scene, o, d, t_max)):
@@ -305,6 +308,60 @@ def test_counted_kernel_matches_plain_and_k1(dev, scene8):
     assert torch.equal(got[3][:, 0], k1[3])
 
 
+@pytest.mark.parametrize("scene_name", ["deep", "one_triangle"])
+def test_counted_kernel_walks_a_deep_and_a_one_leaf_scene(dev, scene_name):
+    """K6 is K1's kernel at counting level 2: t, tri and all three counts
+    equal the plain plane walk's (intersect_closest_counted), and t, tri and
+    nodes equal K1's, to T_MAX and to per-ray bounds, on a BVH deeper than
+    the 32-entry stack and on a scene whose root is a leaf."""
+    from torch_deep_scene import deep_rays, deep_scene
+
+    from rayfinder_tpu_torch.ops import counted, walk
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene import FlattenedScene
+
+    flat, bvh = deep_scene()
+    if scene_name == "one_triangle":
+        flat, bvh = FlattenedScene(*(a[:1] for a in (
+            flat.positions, flat.normals, flat.tex_coords, flat.texture_indices))), None
+    scene = build_device_scene(flat, bvh=bvh, device=dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(4096, seed=9))
+    bound = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 12.0, o.shape[0])
+                             .astype(np.float32)).to(dev)
+    for t_max in (T_MAX, bound):
+        got = counted.intersect_closest_counted(scene, o, d, t_max)
+        assert bool(got[0].any())
+        for a, b in zip(got, counted.intersect_closest_counted_reference(scene, o, d, t_max)):
+            assert torch.equal(a, b)
+        k1 = walk.intersect_closest_kernel(scene, o, d, t_max)
+        for a, b in zip(got[:3], k1[:3]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[3][:, 0], k1[3])
+
+
+def test_counted_and_sky_round_kernels_need_the_packed_tables(dev, scene8):
+    """K6 and K8 read only the packed walk tables: a scene without them
+    raises, and nothing falls back to the plane walk."""
+    import dataclasses
+
+    from rayfinder_tpu_torch.ops import counted
+    from rayfinder_tpu_torch.ops.skyround import sky_round
+
+    o, d = _probe_rays(dev, 64)
+    args = _sky_args(scene8, dev)[1:]
+    for broken, error in ((dict(bvh_nodes2=scene8.bvh_nodes2[:0]), ValueError),
+                          (dict(tri_pos4=None), TypeError)):
+        scene = dataclasses.replace(scene8, **broken)
+        before = counted.intersect_closest_counted.launches, sky_round.launches
+        with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+            counted.intersect_closest_counted(scene, o, d, 1e4)
+        for mode in ("full", "fullwhile"):
+            with pytest.raises(error, match="scene.bvh_nodes2|scene.tri_pos4"):
+                sky_round(scene, *args, 4, mode)
+        assert (counted.intersect_closest_counted.launches, sky_round.launches) == before
+
+
 @pytest.mark.parametrize("group,with_group_min", [(128, True), (7, True), (128, False),
                                                   (100, True)])
 def test_slab_kernel_matches_plain(dev, group, with_group_min):
@@ -363,26 +420,70 @@ def test_slab_kernel_ragged_ray_tile(dev, n):
         assert torch.equal(a, b)
 
 
+def _sky_args(scene, dev, lanes=256):
+    """K8's arguments before rounds and mode: 3 x `lanes` lanes across the
+    bench view at three heights, meeting sky and geometry."""
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    u = torch.from_numpy(np.tile(np.linspace(0.05, 0.95, lanes, dtype=np.float32), 3)).to(dev)
+    v = torch.from_numpy(np.repeat(np.asarray([0.05, 0.3, 0.6], np.float32), lanes)).to(dev)
+    nb = torch.tensor([0.25, 0.75], device=dev).expand(3 * lanes, 2).contiguous()
+    return (scene, create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, 4 / 3),
+            sky_state_from_ui(1.0, (1.0, 1.0, 1.0), 30.0, 0.0), u, v, nb,
+            (float(np.float32(1) / np.float32(800)), float(np.float32(1) / np.float32(600))))
+
+
 @pytest.mark.parametrize("mode", ["full", "nosweep", "sweeponly", "noop", "fullwhile"])
 def test_sky_round_kernel_matches_plain(dev, scene8, mode):
     """K8 against its plain version on lanes that meet sky and geometry;
     the same device functions and the same order of operations, so equal
     to float32 rounding (rtol 1e-5 states the budget, 0 is expected)."""
     from rayfinder_tpu_torch.ops.skyround import sky_round, sky_round_reference
-    from rayfinder_tpu_torch.render.camera import create_camera
-    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
 
-    u = torch.from_numpy(np.tile(np.linspace(0.05, 0.95, 256, dtype=np.float32), 3)).to(dev)
-    v = torch.from_numpy(np.repeat(np.asarray([0.05, 0.3, 0.6], np.float32), 256)).to(dev)
-    nb = torch.tensor([0.25, 0.75], device=dev).expand(768, 2).contiguous()
-    args = (scene8, create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, 4 / 3),
-            sky_state_from_ui(1.0, (1.0, 1.0, 1.0), 30.0, 0.0), u, v, nb,
-            (float(np.float32(1) / np.float32(800)), float(np.float32(1) / np.float32(600))))
+    args = _sky_args(scene8, dev)
     before = sky_round.launches
     got = sky_round(*args, 4, mode)
     assert sky_round.launches == before + 1
     want = sky_round_reference(*args, 4, mode)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["full", "nosweep", "sweeponly", "noop", "fullwhile"])
+def test_sky_round_kernel_twice_is_equal(dev, scene8, mode):
+    """In full, nosweep and sweeponly a warp takes a lane and its threads
+    the lane's rounds, so no output may depend on which warp ran when: two
+    launches equal each other bit for bit, at rounds that fill one, two and
+    a part of a third group of 32, and equal the plain version at rtol 1e-5."""
+    from rayfinder_tpu_torch.ops.skyround import sky_round, sky_round_reference
+
+    args = _sky_args(scene8, dev, lanes=64)
+    for rounds in (1, 32, 70):
+        got = sky_round(*args, rounds, mode)
+        assert torch.equal(got, sky_round(*args, rounds, mode))
+        torch.testing.assert_close(got, sky_round_reference(*args, rounds, mode), rtol=1e-5,
+                                   atol=0)
+
+
+def test_hybrid_last_call_over_the_cap_equals_uncapped(dev, scene8, monkeypatch):
+    """The hybrid at 512x512, one 256-sample dispatch, compact_floor 131,072:
+    its last K4 call (floor 0 over 131,072 lanes in flight, a scratch of
+    402,653,184 bytes) runs in chunks of whole tiles under the cap, equals
+    the same dispatch with the cap lifted bit for bit, and counts the split
+    route's rays."""
+    from rayfinder_tpu_torch.ops import regen_shaded
+
+    w, h, spp, floor = 512, 512, 256, 131_072
+    cap = regen_shaded.SCRATCH_CAP_BYTES
+    assert 12 * floor * spp > cap
+    before = regen_shaded.trace_regen_shaded.launches
+    got, rays = _regen(scene8, dev, w, h, spp, inkernel=True, compact_floor=floor)
+    assert regen_shaded.trace_regen_shaded.launches == before + 2
+    monkeypatch.setattr(regen_shaded, "SCRATCH_CAP_BYTES", 12 * floor * spp)
+    want, want_rays = _regen(scene8, dev, w, h, spp, inkernel=True, compact_floor=floor)
+    assert torch.equal(got, want) and torch.equal(rays, want_rays)
+    _, split_rays = _regen(scene8, dev, w, h, spp, inkernel=False)
+    assert torch.equal(rays, split_rays)
 
 
 def _path_state(scene, dev, w=64, h=48, spp=8):

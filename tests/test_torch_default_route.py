@@ -154,6 +154,38 @@ def test_capped_dispatch_equals_uncapped(courtyard, monkeypatch, shaded_calls, s
     assert torch.equal(got, want) and torch.equal(rays, want_rays)
 
 
+@pytest.mark.parametrize("tiles_per_call", [1, 3])
+def test_hybrid_last_call_split_by_lanes(courtyard, monkeypatch, shaded_calls, tiles_per_call):
+    """The hybrid's last K4 call (floor 0, every lane of the last phase in
+    flight) whose scratch would pass the cap runs as chunks of whole tiles:
+    radiance and ray counts equal the uncapped dispatch's bit for bit, and
+    the counts equal the split route's."""
+    port, _ = courtyard
+    floor = 512  # phases [768, 512]: the last K4 call takes 4 tiles
+    assert pt._phase_sizes(W * H, floor) == [W * H, floor]
+    want, want_rays = _port_regen(port, inkernel=True, compact_floor=floor, count_rays=True)
+    assert [f for _, _, f in shaded_calls["shaded"]] == [0]
+    shaded_calls["shaded"].clear()
+    monkeypatch.setattr(regen_shaded, "SCRATCH_CAP_BYTES", 12 * SPP * 128 * tiles_per_call)
+    assert regen_shaded.lanes_per_call(SPP) == 128 * tiles_per_call
+    got, rays = _port_regen(port, inkernel=True, compact_floor=floor, count_rays=True)
+    assert shaded_calls["shaded"] == [(SPP, 0, 0)] * -(-floor // (128 * tiles_per_call))
+    assert torch.equal(got, want) and torch.equal(rays, want_rays)
+    _, split_rays = _port_regen(port, inkernel=False, count_rays=True)
+    assert torch.equal(rays, split_rays)
+
+
+def test_lanes_per_call_takes_whole_tiles():
+    """A floor-0 call over lanes in flight takes whole 128-lane tiles inside
+    the cap, and at least one: the 512x512 hybrid's last call of 256 samples
+    in chunks of 682 tiles; one tile holds up to 174,762 samples."""
+    assert regen_shaded.lanes_per_call(256) == 87_296 == 128 * (268_435_456 // (12 * 256 * 128))
+    assert regen_shaded.lanes_per_call(16) == 1_398_016
+    assert regen_shaded.lanes_per_call(174_762) == 128
+    assert 12 * 128 * 174_762 <= regen_shaded.SCRATCH_CAP_BYTES < 12 * 128 * 174_763
+    assert regen_shaded.lanes_per_call(10**6) == 128
+
+
 def test_scratch_cap_is_stated_in_bytes():
     """The cap is a module constant in bytes; a (lane, sample) item takes 12
     of them, and a call always takes at least one sample."""

@@ -125,6 +125,29 @@ def test_plain_probe_matches_jax_loop(scenes, mode):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_probe_over_the_packed_walk_is_equal(scenes, mode, monkeypatch):
+    """The kernel's sweep walks the packed tables (csrc/traverse2.cuh); its
+    plain form (render/traverse.py intersect_packed) in place of the plane
+    walk gives the plain probe's acc bit for bit, in every mode."""
+    from rayfinder_tpu_torch.ops import skyround
+    from rayfinder_tpu_torch.render.traverse import intersect_packed
+
+    port, _ = scenes
+    args = _port_args(port)
+    want = sky_round_reference(*args, ROUNDS, mode)
+    walked = []
+
+    def packed(scene, o, d, t_max):
+        walked.append(o.shape[0])
+        return intersect_packed(scene, o, d, t_max)
+
+    monkeypatch.setattr(skyround, "intersect_closest", packed)
+    got = sky_round_reference(*args, ROUNDS, mode)
+    assert torch.equal(got, want)
+    assert bool(walked) == (mode not in ("nosweep", "noop"))
+
+
 def test_lanes_hit_and_miss(scenes):
     """The lanes meet both sky and geometry, so each mode's parts are
     exercised: sweeponly adds t on some lanes and nothing on others."""
