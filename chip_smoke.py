@@ -65,11 +65,30 @@ kernels from csrc/, then:
    the sky-round probe (K8, prof/prof_skyround.py) in each mode and for
    each camera, held to its plain version at 4 rounds on all 65,536 lanes,
    then timed at 64 rounds; its timed shape ("full", Duck camera, 64
-   rounds) also held to its plain version.
+   rounds) also held to its plain version;
+9. (run after 5b) the scan integrator, the unfused loop and the Renderer,
+   over K1/K2: at 128x96, untextured and textured, the unfused loop over
+   K1/K2 (engine="kernel_split") and render_image_tiled in 64x48 windows
+   with K1/K2, each within RMSE 1e-3 of the default route's image and 5e-3
+   of the golden, the unfused loop's ray counts equal to the default
+   route's, and (untextured) the tiled scan form through the plain versions
+   equal to it bit for bit; K1/K2 held to
+   their plain versions exactly on the rays and shadow rays of bounce 2 of
+   the scan form over the slice, parked lanes included; on the slice, the
+   scan form (accumulate_samples: 64 K1 and 64 K2 per 16-sample dispatch,
+   within RMSE 1e-3 of the default route) and the unfused loop (exactly
+   11,611,591 / 8,839,510 rays), timed; the Renderer (three render(16):
+   progress, frames, total_rays, image_u8, a checkpoint round trip, reset
+   on change only); 1920x1080 at 4 spp tiled (scan form) against untiled
+   (default route), RMSE < 1e-3, and the default route's seconds per
+   sample and time to 1024 spp there. One more dispatch of each form on the
+   slice runs under torch.profiler for the device's busy share.
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
-(time, plain time, launches on the run that drives each kernel, bound, and
+(time, plain time, launches on the run that drives each kernel -- for K1
+and K2 the scan form's slice dispatch, with every path's count beside it --
+bound, and
 two closer figures beside it: the issue limit without FMAs and, for a walk,
 the bytes its rays load at the measured rate of data held in L2); the
 last is {"ok": true, "device": {...}}. Every printed time names the card and
@@ -1296,6 +1315,338 @@ def _hybrid_capped(scene, sky, camera, tile, dev, card: str) -> dict:
             "seconds_cap_lifted": sb, "rays": ra.tolist()}
 
 
+def _launch_counts() -> dict:
+    """The ray-query kernels' launch counts (K1, K2)."""
+    from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
+
+    return {"K1": intersect_closest_kernel.launches, "K2": intersect_any_kernel.launches}
+
+
+def _zero_launches() -> None:
+    from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
+
+    intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
+
+
+def _scan_renders(scene, sky, tile, dev, label: str, golden, card: str, plain: bool) -> dict:
+    """Phase 9 at 128x96, 8 spp, 4 bounces: the unfused loop over K1/K2
+    (accumulate_samples_regen engine="kernel_split") and render_image_tiled
+    in 64x48 windows through the scan form with K1/K2 (engine="kernel"),
+    against the default route (one K4 call): each image within RMSE 1e-3
+    of the default route's and 5e-3 of the JAX golden, the unfused loop's
+    ray counts equal to the default route's. With `plain`, also the scan
+    form through the plain versions of K1/K2 (engine="plain"), in one
+    window, which must equal the kernels' tiled image bit for bit (the
+    plain default route ran in phase 3). Returns the launches and times."""
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import (
+        SamplingParams, accumulate_samples_regen, render_image_tiled,
+    )
+
+    w, h, spp = 128, 96, 8
+    cam = create_camera(*CAMERA, w / h)
+    kw = dict(width=w, height=h, num_bounces=4, spp=spp, num_frames=spp, count_rays=True)
+    zeros = torch.zeros(w * h, 3, device=dev)
+    images, counts, out = {}, {}, {"launches": {}, "seconds": {}}
+    accums = {}
+    for name, engine in (("default", "kernel"), ("unfused kernel_split", "kernel_split")):
+        _zero_launches()
+        (accums[name], rays), secs = _timed(lambda: accumulate_samples_regen(
+            scene, sky, cam, tile, 0, zeros, engine=engine, **kw))
+        images[name], counts[name] = _image(accums[name], w, h, spp), rays.tolist()
+        out["launches"][name], out["seconds"][name] = _launch_counts(), secs
+    tiled = [("tiled kernel", "kernel", 64, 48)] + ([("tiled plain", "plain", w, h)] if plain else [])
+    for name, engine, tile_w, tile_h in tiled:
+        _zero_launches()
+        images[name], secs = _timed(lambda: render_image_tiled(
+            scene, sky, cam, width=w, height=h, sampling=SamplingParams(spp, 4), exposure=0.25,
+            engine=engine, tile_w=tile_w, tile_h=tile_h))
+        out["launches"][name], out["seconds"][name] = _launch_counts(), secs
+    for name, img in images.items():
+        vs_default, vs_golden = _rmse(img, images["default"]), _rmse(img, golden["image"])
+        print(f"{label} 128x96 8spp via {name}: {out['seconds'][name]:.2f} s, K1/K2 launches "
+              f"{out['launches'][name]}, rays {counts.get(name, 'not counted')}; RMSE vs default "
+              f"{vs_default:.3e}, vs golden {vs_golden:.3e} [{card}]", flush=True)
+        _require(vs_default < 1e-3, f"{label}: {name} and the default route's images differ")
+        _require(vs_golden < 5e-3, f"{label}: {name} image differs from the golden")
+    _require(counts["unfused kernel_split"] == counts["default"],
+             f"{label}: the unfused loop counts {counts['unfused kernel_split']}, the default "
+             f"route {counts['default']}")
+    got = out["launches"]["unfused kernel_split"]
+    _require(got["K1"] > 0 and got["K1"] == got["K2"],
+             f"{label}: the unfused loop launched K1/K2 {got}")
+    # Four windows x 8 samples x 4 bounces, one K1 and one K2 per bounce.
+    _require(out["launches"]["tiled kernel"] == {"K1": 128, "K2": 128},
+             f"{label}: the tiled scan form launched {out['launches']['tiled kernel']}")
+    if plain:
+        _require(out["launches"]["tiled plain"] == {"K1": 0, "K2": 0},
+                 f"{label}: the plain scan form launched K1/K2")
+        same = np.array_equal(images["tiled kernel"], images["tiled plain"])
+        print(f"  tiled scan form over K1/K2 (64x48 windows) == over their plain versions "
+              f"(one window), bit for bit: {same}", flush=True)
+        _require(same, f"{label}: the scan form over K1/K2 differs from its plain version")
+    out["rays"] = counts
+    return out
+
+
+def _device_busy(label: str, fn, card: str) -> dict:
+    """One call of fn under torch.profiler: the device time of every kernel
+    and copy (the profiler's device events, not the operators that launched
+    them) summed against the wall time (one stream, so their share of the
+    wall is the device's busy share), and the kernels that took the most.
+    Prints "not measured" where the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(fn)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = {e.key: e.device_time_total for e in events}
+    busy_s = sum(device_us.values()) * 1e-6
+    launches = sum(e.count for e in events)
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+    if busy_s <= 0.0:
+        print(f"{label} under torch.profiler: wall {wall:.4f} s, device time not measured (no "
+              f"device events) [{card}]", flush=True)
+        return {"wall_s": wall, "device_busy_s": None}
+    print(f"{label} under torch.profiler: wall {wall:.4f} s, kernels {busy_s:.4f} s over "
+          f"{launches} launches, device busy {busy_s / wall:.3f}; most device time: "
+          + "; ".join(f"{k[:60]} {v * 1e-3:.3f} ms" for k, v in top) + f" [{card}]", flush=True)
+    return {"wall_s": wall, "device_busy_s": busy_s, "kernel_launches": launches,
+            "top_ms": {k: v * 1e-3 for k, v in top}}
+
+
+def _scan_query_check(scene, sky, camera, tile, dev, card: str) -> dict:
+    """K1/K2 at the scan form's inputs: the rays of bounce 2 of one
+    trace_radiance over the slice (sorted, with its parked lanes) and its
+    shadow rays, recorded from the first sample of a scan dispatch, held to
+    their plain versions exactly (t at atol 0, tri, nodes, occlusion), and
+    timed, with their bounds from the rays' counted work."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import intersect_closest_counted, walk_operations
+    from rayfinder_tpu_torch.ops.walk import (
+        intersect_any_kernel, intersect_any_reference,
+        intersect_closest_kernel, intersect_closest_reference,
+    )
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.traverse import count_work, intersect_any
+
+    w, h = SLICE["width"], SLICE["height"]
+    calls = {"closest": [], "any": []}
+    closest, any_hit = pt._WALKS["kernel"]
+
+    def record(kind, fn):
+        def wrapped(scene_, o, d, t_max):
+            calls[kind].append((o.clone(), d.clone(), t_max.clone()))
+            return fn(scene_, o, d, t_max)
+        return wrapped
+
+    pt._WALKS["kernel"] = (record("closest", closest), record("any", any_hit))
+    try:
+        pt.accumulate_sample(scene, sky, camera, tile, 0, torch.zeros(w * h, 3, device=dev),
+                             width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"])
+    finally:
+        pt._WALKS["kernel"] = (closest, any_hit)
+    (o, d, t_max), (so, sd, st) = calls["closest"][1], calls["any"][1]
+    parked = (int((o == 1e30).all(1).sum()), int((so == 1e30).all(1).sum()))
+    _, t, tri, visits = intersect_closest_kernel(scene, o, d, t_max)
+    occ = intersect_any_kernel(scene, so, sd, st)
+    _, pt_, ptri, pvisits = intersect_closest_reference(scene, o, d, t_max)
+    pocc = intersect_any_reference(scene, so, sd, st)
+    same = dict(t=bool(torch.equal(t, pt_)), tri=bool(torch.equal(tri, ptri)),
+                nodes=bool(torch.equal(visits, pvisits)), occ=bool(torch.equal(occ, pocc)))
+    n = o.shape[0]
+    print(f"K1/K2 at the scan form's bounce 2 over the slice: {n} rays ({parked[0]} parked), "
+          f"{n} shadow rays ({parked[1]} parked); kernel == plain {same} [{card}]", flush=True)
+    _require(all(same.values()), f"K1/K2 differ from plain at the scan form's bounce 2: {same}")
+    _require(min(parked) > 0, "the scan form's bounce 2 handed K1/K2 no parked lane")
+    c = intersect_closest_counted(scene, o, d, t_max)[3].sum(0, dtype=torch.int64).tolist()
+    k1_bound = _bound(walk_operations(c[0], c[2]), _nbytes(o, d, t_max) + 12 * n
+                      + _walk_bytes(scene), issue=_walk_issue(c[0], c[2]),
+                      loaded=_walk_loaded(n, c[0], c[2]))
+    with count_work() as work:
+        intersect_any(scene, so, sd, st)
+    k2_bound = _bound(_walk_ops(work), _nbytes(so, sd, st) + n + _walk_bytes(scene),
+                      **_work_second(work))
+    k1_ms = _time_ms(lambda: intersect_closest_kernel(scene, o, d, t_max), 20)
+    k2_ms = _time_ms(lambda: intersect_any_kernel(scene, so, sd, st), 20)
+    print(f"  K1 there {k1_ms:.4f} ms (bound {k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}), "
+          f"K2 {k2_ms:.4f} ms (bound {k2_bound['bound_ms']:.4f} ms, {k2_bound['bound_by']}); "
+          f"nodes/ray {c[0] / n:.2f} [{card}]", flush=True)
+    return {"rays": n, "parked": parked, "k1_ms": k1_ms, "k2_ms": k2_ms,
+            "k1_bound_ms": k1_bound["bound_ms"], "k2_bound_ms": k2_bound["bound_ms"]}
+
+
+def _scan_slice(scene, sky, camera, tile, dev, card: str) -> dict:
+    """Phase 9 on the slice (courtyard_scene(26), 512x512, 4 bounces): the
+    default route, the scan form (accumulate_samples, engine "kernel") and
+    the unfused loop (accumulate_samples_regen, engine "kernel_split"), each
+    a warm-up dispatch of samples 0-15 and a timed one of 16-31 fenced by a
+    device sync, K1/K2 launch counts set to 0 just before the timed dispatch
+    and read just after. The scan form must launch 64 K1 and 64 K2 and
+    accumulate within RMSE 1e-3 (tonemapped) of the default route; the
+    unfused loop must count exactly SLICE_RAYS."""
+    import torch
+
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples, accumulate_samples_regen
+
+    w, h, nf = SLICE["width"], SLICE["height"], SLICE["num_frames"]
+    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"], num_frames=nf)
+    zeros = torch.zeros(w * h, 3, device=dev)
+    out = {"seconds": {}, "mrays_per_s": {}, "launches": {}, "warm_seconds": {}}
+    accums = {}
+    forms = (("default", lambda fb, a: accumulate_samples_regen(
+                 scene, sky, camera, tile, fb, a, count_rays=True, **kw)),
+             ("scan", lambda fb, a: accumulate_samples(
+                 scene, sky, camera, tile, fb, a, engine="kernel", **kw)),
+             ("unfused", lambda fb, a: accumulate_samples_regen(
+                 scene, sky, camera, tile, fb, a, engine="kernel_split", count_rays=True, **kw)))
+    for name, run in forms:
+        warm, out["warm_seconds"][name] = _timed(lambda: run(0, zeros))
+        warm = warm[0] if isinstance(warm, tuple) else warm
+        _zero_launches()
+        res, secs = _timed(lambda: run(nf, warm))
+        out["launches"][name] = _launch_counts()
+        accum, rays = res if isinstance(res, tuple) else (res, None)
+        accums[name] = accum
+        out["seconds"][name] = secs
+        # The scan form traces the same segments as the counted forms.
+        counted = rays.tolist() if rays is not None else SLICE_RAYS
+        out["mrays_per_s"][name] = sum(counted) / secs / 1e6
+        err = _rmse(_image(accum, w, h, 2 * nf), _image(accums["default"], w, h, 2 * nf))
+        print(f"slice via {name}: {secs:.4f} s, {out['mrays_per_s'][name]:.3f} Mrays/s "
+              f"(rays {counted}{'' if rays is not None else ', the counted forms'}), warm-up "
+              f"dispatch {out['warm_seconds'][name]:.3f} s, K1/K2 launches {out['launches'][name]}, "
+              f"RMSE vs default (tonemapped, 32 samples) {err:.3e} [{card}]", flush=True)
+        _require(bool(torch.isfinite(accum).all()) and float(accum.sum()) > 0.0,
+                 f"slice {name}: the radiance is not finite and non-zero")
+        _require(err < 1e-3, f"slice {name}: the accumulation differs from the default route's")
+        if rays is not None:
+            _require(counted == SLICE_RAYS, f"slice {name}: counts {counted}, expected {SLICE_RAYS}")
+    out["profile"] = {name: _device_busy(f"slice via {name}, samples 16-31", lambda: run(
+        nf, accums[name]), card) for name, run in forms}
+    launches = out["launches"]
+    _require(launches["scan"] == {"K1": 64, "K2": 64},
+             f"the scan form launched {launches['scan']}, expected 64 K1 and 64 K2")
+    _require(launches["unfused"]["K1"] > 0 and launches["unfused"]["K1"] == launches["unfused"]["K2"],
+             f"the unfused loop launched {launches['unfused']}")
+    _require(launches["default"] == {"K1": 0, "K2": 0}, "the default route launched K1/K2")
+    return out
+
+
+def _renderer_check(scene, camera, dev, card: str) -> dict:
+    """Phase 9's Renderer on the slice: three render(16) calls on the
+    default engine counting rays; progress, frame count, total_rays against
+    one counted dispatch of the same 48 samples; image_u8 against image();
+    a checkpoint saved and loaded on the card bit for bit; reset only on a
+    real parameter change."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.render.pathtracer import SamplingParams, accumulate_samples_regen
+    from rayfinder_tpu_torch.render.renderer import Renderer, RenderParameters, Sky
+
+    w, h = SLICE["width"], SLICE["height"]
+    params = RenderParameters(width=w, height=h, camera=camera,
+                              sampling=SamplingParams(SLICE["spp"], SLICE["num_bounces"]),
+                              sky=Sky(*SKY), exposure=0.25)
+    r = Renderer(scene, params, engine="kernel", count_rays=True)
+    trace_regen_shaded.launches = 0
+    times = []
+    for _ in range(3):
+        _, secs = _timed(lambda: r.render(16))
+        times.append(secs)
+    k4 = trace_regen_shaded.launches
+    accum, rays = accumulate_samples_regen(
+        scene, Sky(*SKY).state(), camera, r._tile, 0, torch.zeros(w * h, 3, device=dev),
+        width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"], num_frames=48,
+        count_rays=True)
+    same_accum = bool(torch.equal(accum, r._accum))
+    print(f"Renderer on the slice: 3 x render(16) {[round(t, 4) for t in times]} s, rolling pass "
+          f"{r.average_render_pass_duration_ms():.3f} ms, K4 launches {k4}, progress "
+          f"{r.render_progress_percentage()}%, frames {r.frame_count}, total_rays {r.total_rays} "
+          f"(one 48-sample dispatch {int(rays.sum())}, its accumulation equal bit for bit: "
+          f"{same_accum}) [{card}]", flush=True)
+    _require(k4 == 3, f"the Renderer took {k4} K4 calls for three render(16)")
+    _require((r.accumulated_sample_count, r.frame_count) == (48, 48)
+             and r.render_progress_percentage() == 100.0 * 48 / SLICE["spp"],
+             "the Renderer's progress or frame count is wrong")
+    _require(r.total_rays == int(rays.sum()), f"total_rays {r.total_rays} != {int(rays.sum())}")
+    _require(bool(torch.allclose(accum, r._accum, rtol=1e-5, atol=1e-5)),
+             "the Renderer's accumulation differs from one dispatch of its samples")
+    u8, f32 = r.image_u8(), r.image()
+    _require(np.array_equal(u8, np.clip(np.round(f32 * 255.0), 0, 255).astype(np.uint8)),
+             "image_u8 is not the quantized image")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "render.ckpt.npz"
+        r.save_checkpoint(path)
+        r2 = Renderer(scene, params, engine="kernel")
+        r2.load_checkpoint(path)
+    _require(r2._accum.device == r._accum.device and bool(torch.equal(r2._accum, r._accum))
+             and (r2.accumulated_sample_count, r2.frame_count) == (48, 48),
+             "the checkpoint did not load back bit for bit")
+    r.set_render_parameters(dataclasses.replace(params))
+    kept = r.accumulated_sample_count
+    r.set_render_parameters(dataclasses.replace(params, exposure=0.5))
+    _require(kept == 48 and r.accumulated_sample_count == 0 and r.frame_count == 48
+             and not bool(r._accum.any()), "the Renderer's reset on a parameter change is wrong")
+    print("  image_u8 == quantized image(); checkpoint round trip on the card bit for bit; "
+          "reset on a changed exposure only", flush=True)
+    return {"render_seconds": times, "k4_launches": k4, "total_rays": r.total_rays,
+            "accum_equal_one_dispatch": same_accum}
+
+
+def _full_hd(scene, sky, tile, dev, card: str) -> dict:
+    """Phase 9 at 1920x1080, 4 bounces: render_image_tiled (scan form, K1/K2,
+    512x512 windows) against render_image (default route, K4), 4 spp, RMSE
+    < 1e-3; then the default route's seconds per sample from a timed
+    32-sample dispatch after a warm-up one, and time_to_1024spp_1080p_s from
+    it."""
+    import torch
+
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import (
+        SamplingParams, accumulate_samples_regen, render_image, render_image_tiled,
+    )
+
+    w, h = 1920, 1080
+    cam = create_camera(*CAMERA, w / h)
+    kw = dict(width=w, height=h, sampling=SamplingParams(4, SLICE["num_bounces"]), exposure=0.25)
+    render_image(scene, sky, cam, **kw)  # warm-up: the pixel order of the size
+    whole, whole_s = _timed(lambda: render_image(scene, sky, cam, **kw))
+    _zero_launches()
+    tiled, tiled_s = _timed(lambda: render_image_tiled(scene, sky, cam, engine="kernel", **kw))
+    launches = _launch_counts()
+    err = _rmse(tiled, whole)
+    dkw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=1024, num_frames=32,
+               count_rays=True)
+    warm, _ = accumulate_samples_regen(scene, sky, cam, tile, 0,
+                                       torch.zeros(w * h, 3, device=dev), **dkw)
+    (_, rays), secs = _timed(lambda: accumulate_samples_regen(scene, sky, cam, tile, 32, warm, **dkw))
+    per_sample = secs / 32
+    print(f"1920x1080, 4 spp: render_image_tiled (scan form, 512x512 windows) {tiled_s:.3f} s, "
+          f"K1/K2 launches {launches}; render_image (default route) {whole_s:.4f} s; RMSE "
+          f"{err:.3e} [{card}]", flush=True)
+    print(f"1920x1080 default route: a 32-sample dispatch {secs:.4f} s, {per_sample:.6f} s per "
+          f"sample, {sum(rays.tolist()) / secs / 1e6:.3f} Mrays/s (rays {rays.tolist()}); "
+          f"time_to_1024spp_1080p_s {1024 * per_sample:.3f} [{card}]", flush=True)
+    _require(err < 1e-3, f"tiled 1080p differs from untiled: RMSE {err:.3e}")
+    _require(launches["K1"] == launches["K2"] == 12 * 4 * SLICE["num_bounces"],
+             f"the tiled 1080p render launched {launches}")
+    return {"tiled_seconds": tiled_s, "untiled_seconds": whole_s, "rmse": err,
+            "launches_tiled": launches, "seconds_per_sample": per_sample,
+            "time_to_1024spp_1080p_s": 1024 * per_sample, "rays_32": rays.tolist(),
+            "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -1366,7 +1717,7 @@ def main(argv=None) -> int:
     camera = create_camera(*CAMERA, SLICE["width"] / SLICE["height"])
     walk_entries = _ray_queries(scene26, camera, dev, card)
 
-    launches, slice_numbers, textured_numbers = {}, {}, {}
+    launches, slice_numbers, textured_numbers, scan_numbers = {}, {}, {}, {}
     if full:
         # --- 3. small render: kernels vs plain vs the JAX-baked golden ------
         # The default route (one K4 call) through the kernel and its plain
@@ -1427,6 +1778,35 @@ def main(argv=None) -> int:
                                      "textured courtyard26")
         del scene26t
 
+        # --- 9. the scan integrator, the unfused loop and the Renderer ------
+        # Their main path is the scan form on the slice (64 K1 and 64 K2 per
+        # 16-sample dispatch); the unfused loop launches both once per
+        # iteration. Then the Renderer and 1080p.
+        t0 = time.perf_counter()
+        scan_numbers = {
+            "render": _scan_renders(scene8, sky, tile, dev, "render", np.load(
+                GOLDENS / "courtyard_untextured_128x96_8spp.npz"), card, plain=True),
+            "textured_render": _scan_renders(scene8t, sky, tile, dev, "textured render", np.load(
+                GOLDENS / "courtyard_textured_128x96_8spp.npz"), card, plain=False),
+            "queries": _scan_query_check(scene26, sky, camera, tile, dev, card),
+            "slice": _scan_slice(scene26, sky, camera, tile, dev, card),
+            "renderer": _renderer_check(scene26, camera, dev, card),
+            "full_hd": _full_hd(scene26, sky, tile, dev, card),
+        }
+        scan_numbers["seconds"] = time.perf_counter() - t0
+        print(f"phase 9: {scan_numbers['seconds']:.1f} s", flush=True)
+        for entry, key in zip(walk_entries, ("K1", "K2")):
+            slice_launches = scan_numbers["slice"]["launches"]
+            entry["launches_by_path"] = {
+                "phase 2 ray queries": entry["launches"],
+                "phase 9 scan form, slice dispatch": slice_launches["scan"][key],
+                "phase 9 unfused loop, slice dispatch": slice_launches["unfused"][key],
+            }
+            entry["launches"] = slice_launches["scan"][key]
+            entry["path"] = "phase 9 scan form, slice dispatch"
+            entry["ms_scan_bounce2"] = scan_numbers["queries"][f"{key.lower()}_ms"]
+            entry["bound_ms_scan_bounce2"] = scan_numbers["queries"][f"{key.lower()}_bound_ms"]
+
     # K3, K5 and K4 per dispatch: one instrumented dispatch per route.
     by_width = _dispatch_kernel_times(scene26, sky, camera, tile, dev, card)
 
@@ -1461,6 +1841,7 @@ def main(argv=None) -> int:
         "probes": probes,
         "slice": slice_numbers,
         "textured_slice": textured_numbers,
+        "scan": scan_numbers,
         "l2_bytes_per_s": L2_RATE["bytes_per_s"],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,11 @@ regeneration loop (`render.pathtracer.accumulate_samples_regen`), driven by
 CUDA kernels built at first use from `csrc/` (see `ops/_build.py`): closest
 hit, any hit and the persistent trace/sky/regenerate kernel, with its
 in-kernel-shaded (`inkernel=True`) and multi-segment (`segs=K`) forms for
-the loop's two other routes. Every kernel has a plain PyTorch version beside
-it; a wrapper takes it only for tensors that lie on the CPU. The package
+the loop's two other routes. The scan integrator (`accumulate_samples`,
+`render_image_tiled`) and the unfused loop (`engine="kernel_split"`) trace
+with the closest-hit and any-hit kernels; `render.renderer.Renderer` is the
+progressive renderer over them. Every kernel has a plain PyTorch version
+beside it; a wrapper takes it only for tensors that lie on the CPU. The package
 imports nothing of `rayfinder_tpu`: the host code it needs (scene loading,
 BVH build, the `.pt` format, assets) is its own copy.
 
@@ -34,8 +37,13 @@ _LAZY = {
     "load_device_scene": "render.scene",
     "DeviceScene": "render.scene",
     "render_image": "render.pathtracer",
+    "render_image_tiled": "render.pathtracer",
     "accumulate_samples_regen": "render.pathtracer",
+    "accumulate_samples": "render.pathtracer",
     "SamplingParams": "render.pathtracer",
+    "Renderer": "render.renderer",
+    "RenderParameters": "render.renderer",
+    "Sky": "render.renderer",
     "create_camera": "render.camera",
     "Camera": "render.camera",
 }

@@ -2,7 +2,9 @@
 
 The port walks the BVH per thread and keeps no clusters, but the traversal
 diagnostics (prof/diag_iters.py) order bounce rays by the parent hit's
-cluster, as the JAX sorted loop does. The JAX scene cuts its leaf-ordered
+cluster, as the JAX sorted loop does, and the scene upload counts the
+clusters (render/scene.py `num_clusters`), on which the scan integrator
+decides whether to sort bounce rays. The JAX scene cuts its leaf-ordered
 triangles into BVH-treelet ranges of at most 128 triangles
 (`rayfinder_tpu.render.scene.build_device_scene`:
 `build_clusters(positions, ranges=treelet_ranges(bvh, DEFAULT_LEAF_SIZE,

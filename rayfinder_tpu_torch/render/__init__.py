@@ -1,1 +1,2 @@
-"""Rendering: device scene, camera, sampling, traversal and the regen loop."""
+"""Rendering: device scene, camera, sampling, traversal, the regen loops, the
+scan integrator and the progressive Renderer."""

@@ -62,6 +62,20 @@ def create_camera(
     )
 
 
+def generate_camera_ray(camera: Camera, u, v):
+    """Pinhole primary ray for (u, v) batches (camera.cpp:44-51). u, v:
+    (...,) f32 tensors. Returns (origin, direction), each (..., 3)."""
+    dev = u.device
+
+    def vec(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    d = vec(camera.lower_left_corner) + u[..., None] * vec(camera.horizontal) \
+        + v[..., None] * vec(camera.vertical) - vec(camera.origin)
+    norm = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
+    return vec(camera.origin).expand_as(d).contiguous(), d / norm[..., None]
+
+
 def generate_camera_ray_lens(camera: Camera, noise, u, v):
     """Thin-lens primary ray with a blue-noise lens sample
     (reference_path_tracer.wgsl:236-245). noise: (B, 2) in [0, 1); u, v:

@@ -1,7 +1,11 @@
-"""Path tracer with path regeneration: the port of the JAX package's fused
-regeneration loop (`rayfinder_tpu.render.pathtracer`, accumulate_samples_regen
-with engine="pallas": _accumulate_regen_fused and its two other routes,
-_accumulate_regen_inkernel and _accumulate_regen_fused_segs).
+"""Path tracer: the port of `rayfinder_tpu.render.pathtracer`. Its fused
+regeneration loop (accumulate_samples_regen with engine="pallas":
+_accumulate_regen_fused and its two other routes, _accumulate_regen_inkernel
+and _accumulate_regen_fused_segs), the unfused regeneration loop over the
+ray queries K1/K2 (accumulate_lanes_regen's loop for its other engines), the
+scan integrator (trace_radiance, accumulate_sample(s), the windows of
+render_image_tiled), and the accumulator choice of render_image and the
+Renderer (pick_accumulator).
 
 Per sample and pixel, with one 2D blue-noise value reused for every sampling
 decision that frame (exactly like the reference's WGSL megakernel `rayColor`,
@@ -24,6 +28,13 @@ As lanes finish, the busy ones are compacted into narrower batches (phases).
 The hybrid in-kernel route (inkernel=True with a compact_floor below the
 batch) runs K4 per phase after a split first phase; the segs route (segs=K)
 keeps K paths per lane in the kernel K5 (ops/regen_segs.py).
+
+The unfused loop and the scan integrator trace each path segment with one
+closest-hit query and one any-hit (shadow) query, the kernels K1 and K2
+(ops/walk.py) on engine "kernel" / "kernel_split", and shade in torch. The
+scan form runs each sample's bounces over every pixel at once; on scenes
+with more than SORT_THRESHOLD clusters it sorts the lanes by a coherence key
+before each bounce and puts the radiance back in pixel order at the end.
 """
 
 from __future__ import annotations
@@ -39,16 +50,26 @@ from ..ops.regen_segs import SEGS, trace_regen_segs, trace_regen_segs_reference
 from ..ops.regen_shaded import (
     TILE, lanes_per_call, samples_per_call, trace_regen_shaded, trace_regen_shaded_reference,
 )
-from ..sky.model import SkyState
-from .camera import Camera, primary_ray
-from .intersect import T_MAX
-from .rng import blue_noise_tile, noise_of
+from ..ops.walk import (
+    intersect_any_kernel, intersect_any_reference,
+    intersect_closest_kernel, intersect_closest_reference,
+)
+from ..sky.model import SkyState, sky_radiance_dist
+from .camera import Camera, generate_camera_ray_lens, primary_ray
+from .intersect import T_MAX, dot
+from .rng import animated_blue_noise, blue_noise_tile, noise_of
+from .sampling import sample_cosine_hemisphere, sample_solar_disk_direction
 from .scene import DeviceScene
 # The shade step lives in render/shade.py (the plain kernels use it too);
 # it is re-exported here, beside the loop that drives it.
-from .shade import PARK, _nee_and_continuation, _surface_interaction  # noqa: F401
+from .shade import (  # noqa: F401
+    FRAC_1_PI, PARK, SOLAR_COS_THETA_MAX, SOLAR_INV_PDF, _nee_and_continuation,
+    _surface_interaction,
+)
+from .texture_eval import eval_texture
 from .tiling import block_order, unswizzle
 from .tonemap import tonemap
+from .traverse import intersect_any, intersect_closest
 
 # Phase compaction: when the busy-lane count falls below 1/DIV of the batch,
 # the busy lanes move into a batch that size, then down a ladder to FLOOR
@@ -56,6 +77,13 @@ from .tonemap import tonemap
 # kept until a GPU measurement says otherwise).
 _COMPACT_DIV = 10
 _COMPACT_FLOOR = 4096
+# Scenes with more BVH-treelet clusters than this (DeviceScene.num_clusters)
+# sort bounce rays for coherence in the scan integrator (trace_radiance), and
+# take the scan form on the unfused engines (pick_accumulator). Position bits
+# per axis in the sort key. The JAX package's values, kept as module
+# constants until a GPU measurement earns a knob.
+SORT_THRESHOLD = 256
+_SORT_BITS = 5
 
 
 class _Kernels(NamedTuple):
@@ -73,6 +101,32 @@ _ENGINES = {
     "plain": _Kernels(trace_regen_reference, trace_regen_shaded_reference,
                       trace_regen_segs_reference),
 }
+
+# engine name -> the ray queries (closest, any_hit) of the unfused loop and
+# the scan integrator (get_engine). "kernel" and "kernel_split" are K1/K2
+# (the JAX "pallas" and "pallas_split"; on CPU tensors their wrappers run
+# the plain versions); "plain" is their plain version, the packed walk in
+# torch; "reference" the plane walk (render/traverse.py, the JAX
+# "reference"), which the packed walk equals bit for bit.
+_WALKS = {
+    "kernel": (intersect_closest_kernel, intersect_any_kernel),
+    "kernel_split": (intersect_closest_kernel, intersect_any_kernel),
+    "plain": (intersect_closest_reference, intersect_any_reference),
+    "reference": (intersect_closest, intersect_any),
+}
+# The engines of accumulate_samples_regen that run the unfused loop.
+_UNFUSED = ("kernel_split", "reference")
+
+
+def get_engine(engine: str):
+    """Resolve a traversal engine name to (closest, any_hit) callables:
+    closest(scene, o, d, t_max) -> (hit, t, tri_idx, nodes_visited);
+    any_hit(scene, o, d, t_max) -> occluded."""
+    if engine == "wavefront":
+        raise ValueError("the wavefront engine is not ported: ROADMAP.md section 1, item 9")
+    if engine not in _WALKS:
+        raise ValueError(f"unknown traversal engine {engine!r}: the port has {sorted(_WALKS)}")
+    return _WALKS[engine]
 
 
 def _phase_sizes(batch: int, floor: int) -> list[int]:
@@ -98,6 +152,184 @@ class SamplingParams(NamedTuple):
 
     num_samples_per_pixel: int = 128
     num_bounces: int = 4
+
+
+def _segment(scene, sky, sun, walks, origin, direction, thr, rad, noise, live):
+    """One path segment of the scan integrator and the unfused loop, for
+    the lanes `live`: the closest hit (K1), at a miss the sky radiance
+    without the sun (it arrives through NEE), at a hit the NEE sample
+    toward the solar disk with its shadow ray (K2), added to rad in that
+    order, and the cosine scatter ray (wgsl:180-234). sun: the sky's
+    (sun_direction, solar_radiances) as tensors on the lanes' device.
+
+    Returns (rad, hit_lane, p, wi, albedo, ray_ok): the hit lanes, the
+    offset hit point, the scatter direction, the albedo, and whether p and
+    wi are finite (degenerate shading normals give non-finite directions,
+    which no kernel is handed)."""
+    closest, any_hit = walks
+    sun_dir, solar = sun
+    t_max = origin.new_full((origin.shape[0],), T_MAX)
+    hit, _, tri, _ = closest(scene, origin, direction, t_max)
+    hit_lane = live & hit
+    miss_lane = live & ~hit
+
+    theta = torch.acos(direction[:, 1].clamp(-1.0, 1.0))
+    gamma = torch.acos(dot(direction, sun_dir).clamp(-1.0, 1.0))
+    rad = torch.where(miss_lane[:, None], rad + thr * sky_radiance_dist(sky, theta, gamma), rad)
+
+    p, n, uv, tex = _surface_interaction(scene, origin, direction, tri.clamp(min=0))
+    albedo = eval_texture(scene, tex, uv)
+    light_dir = sample_solar_disk_direction(noise, SOLAR_COS_THETA_MAX, sun_dir)
+    brdf = albedo * float(FRAC_1_PI)
+    # No clamp on the cosine -- parity with wgsl:201.
+    cos_term = dot(n, light_dir)[:, None]
+    p_ok = torch.isfinite(p).all(dim=1)
+    occluded = any_hit(scene, torch.where((hit_lane & p_ok)[:, None], p, PARK), light_dir, t_max)
+    visibility = torch.where(occluded, 0.0, 1.0)[:, None]
+    contrib = thr * solar * brdf * cos_term * visibility * float(SOLAR_INV_PDF)
+    rad = torch.where(hit_lane[:, None], rad + contrib, rad)
+
+    wi = sample_cosine_hemisphere(noise, n)
+    ray_ok = torch.isfinite(wi).all(dim=1) & p_ok
+    return rad, hit_lane, p, wi, albedo, ray_ok
+
+
+def _coherence_key(origin, direction, live, lo, inv):
+    """The bounce sort key: the direction's octant over _SORT_BITS bits per
+    axis of the origin's cell (1024 per axis from lo, `inv` cells per unit),
+    dead lanes last."""
+    octant = ((direction[:, 0] < 0).to(torch.int32) + 2 * (direction[:, 1] < 0).to(torch.int32)
+              + 4 * (direction[:, 2] < 0).to(torch.int32))
+    cell = ((origin - lo) * inv).clamp(0.0, 1023.0).to(torch.int32)
+    b = _SORT_BITS
+    sh = 10 - b
+    pos_key = (cell[:, 0] >> sh << (2 * b)) | (cell[:, 1] >> sh << b) | (cell[:, 2] >> sh)
+    return torch.where(live, (octant << (3 * b)) | pos_key, 2**30)
+
+
+def trace_radiance(
+    scene: DeviceScene,
+    sky: SkyState,
+    origin,
+    direction,
+    noise,
+    num_bounces: int,
+    engine: str = "kernel",
+    decorrelate: bool = False,
+):
+    """Radiance for a batch of primary rays (rayColor, wgsl:180-234).
+
+    origin/direction: (B, 3) f32; noise: (B, 2), one value reused for every
+    decision of the path, as the reference samples one blue-noise value per
+    pixel per frame (wgsl:52). decorrelate=True rotates the noise by a
+    per-bounce R2 offset instead (lower sample correlation at the cost of
+    exact parity). engine: get_engine's names. Returns (B, 3) f32 radiance.
+
+    Ended lanes are parked far outside the scene, so the queries drop them
+    at the root. On scenes with more than SORT_THRESHOLD clusters (bounce
+    rays scatter everywhere, so neighbouring lanes stop being coherent), the
+    lanes are sorted by _coherence_key before each bounce after the first
+    (one stable argsort), and the radiance goes back to pixel order at the
+    end; a lane's order changes no pixel's value. Each lane keeps its own
+    pixel's noise through the sort (the JAX form, with decorrelate,
+    re-reads the unsorted base noise from the third bounce on)."""
+    walks = get_engine(engine)
+    dev = origin.device
+    batch = origin.shape[0]
+    radiance = torch.zeros(batch, 3, device=dev)
+    throughput = torch.ones(batch, 3, device=dev)
+    alive = torch.ones(batch, dtype=torch.bool, device=dev)
+    base_noise = noise
+    sun = (torch.as_tensor(sky.sun_direction, device=dev),
+           torch.as_tensor(sky.solar_radiances, device=dev))
+    sort_bounces = num_bounces > 1 and scene.num_clusters > SORT_THRESHOLD
+    pixel_of = torch.arange(batch, device=dev)
+    if sort_bounces:
+        # Triangle bounds of the scene, 1023 cells across.
+        lo = scene.tri_positions.amin(dim=(0, 1))
+        inv = 1023.0 / torch.clamp(scene.tri_positions.amax(dim=(0, 1)) - lo, min=1e-6)
+
+    for bounce in range(1, num_bounces + 1):
+        if decorrelate and bounce > 1:
+            # Rotate the pixel's noise point by the R2 sequence per bounce.
+            shift = torch.tensor([np.float32(0.7548776662466927) * bounce,
+                                  np.float32(0.5698402909980532) * bounce], device=dev)
+            noise = base_noise + shift
+            noise = noise - torch.floor(noise)
+        if bounce > 1:
+            origin = torch.where(alive[:, None], origin, PARK)
+        if sort_bounces and bounce > 1:
+            order = torch.argsort(_coherence_key(origin, direction, alive, lo, inv), stable=True)
+            origin, direction, radiance, throughput = (
+                x[order] for x in (origin, direction, radiance, throughput))
+            alive, noise, base_noise, pixel_of = (
+                x[order] for x in (alive, noise, base_noise, pixel_of))
+        radiance, hit_lane, p, wi, albedo, ray_ok = _segment(
+            scene, sky, sun, walks, origin, direction, throughput, radiance, noise, alive)
+        if bounce == num_bounces:
+            break
+        # Scatter: implicit-PDF Lambertian (wgsl:209-211, 294-301).
+        alive = hit_lane & ray_ok
+        origin = torch.where(alive[:, None], p, origin)
+        direction = torch.where(alive[:, None], wi, direction)
+        throughput = torch.where(alive[:, None], throughput * albedo, throughput)
+
+    if sort_bounces:
+        radiance = torch.zeros_like(radiance).index_copy_(0, pixel_of, radiance)
+    return radiance
+
+
+def _scan_frames(scene, sky, camera, tile, frame_base: int, accum, ys, xs, *, width: int,
+                 height: int, num_bounces: int, spp: int, num_frames: int, engine: str):
+    """Add samples frame_base .. frame_base + num_frames - 1 of the pixels
+    (ys, xs) (block order) of a width x height image to accum, one
+    trace_radiance per sample (fsMain, wgsl:34-64): the fragment's texCoord
+    jittered by the frame's noise over the image size, ray v = 1 - texCoord.y
+    (wgsl:51-55), thin-lens primaries."""
+    u = (xs.to(torch.float32) + 0.5) / float(width)
+    v_tex = (ys.to(torch.float32) + 0.5) / float(height)
+    dims = torch.tensor([float(width), float(height)], device=accum.device)
+    for k in range(num_frames):
+        noise = animated_blue_noise(ys, xs, frame_base + k, spp, tile=tile)
+        jitter = noise / dims
+        origin, direction = generate_camera_ray_lens(
+            camera, noise, u + jitter[:, 0], (1.0 - v_tex) + jitter[:, 1])
+        accum = accum + trace_radiance(scene, sky, origin, direction, noise, num_bounces, engine)
+    return accum
+
+
+def _pixels(width: int, height: int, dev, x0: int = 0, y0: int = 0):
+    """(ys, xs) of a width x height window at (x0, y0), in block order."""
+    ys_np, xs_np, _ = block_order(width, height)
+    return torch.from_numpy(ys_np).to(dev) + y0, torch.from_numpy(xs_np).to(dev) + x0
+
+
+def accumulate_sample(
+    scene: DeviceScene, sky: SkyState, camera: Camera, blue_noise_tile, frame_idx: int, accum,
+    *, width: int, height: int, num_bounces: int, spp: int, engine: str = "kernel",
+):
+    """One progressive frame: one sample per pixel added into accum ((H*W,
+    3) f32, block-major pixel order, render/tiling.py). Returns the new
+    buffer."""
+    ys, xs = _pixels(width, height, accum.device)
+    return _scan_frames(scene, sky, camera, blue_noise_tile, frame_idx, accum, ys, xs,
+                        width=width, height=height, num_bounces=num_bounces, spp=spp,
+                        num_frames=1, engine=engine)
+
+
+def accumulate_samples(
+    scene: DeviceScene, sky: SkyState, camera: Camera, blue_noise_tile, frame_base: int, accum,
+    *, width: int, height: int, num_bounces: int, spp: int, num_frames: int,
+    engine: str = "kernel",
+):
+    """The scan form: `num_frames` progressive samples, frame_base first,
+    each through trace_radiance over every pixel (num_frames calls of
+    accumulate_sample, in one call). Rays, shading and accum are in
+    block-major pixel order."""
+    ys, xs = _pixels(width, height, accum.device)
+    return _scan_frames(scene, sky, camera, blue_noise_tile, frame_base, accum, ys, xs,
+                        width=width, height=height, num_bounces=num_bounces, spp=spp,
+                        num_frames=num_frames, engine=engine)
 
 
 @dataclasses.dataclass
@@ -446,6 +678,128 @@ def _accumulate_regen_fused_segs(d: _Dispatch, accum, lanes, floor, count_rays, 
     return _with_counts(out, counts, batch * d.nf) if count_rays else out
 
 
+def _accumulate_unfused(d: _Dispatch, walks, accum, lanes, floor, count_rays):
+    """The unfused regeneration loop (JAX accumulate_lanes_regen with an
+    engine other than "pallas"): per iteration one _segment over the lanes,
+    one closest-hit and one any-hit query, then the lanes whose sample ended
+    add its radiance to their pixel, in sample order, and start their
+    pixel's next sample. Phase 1 has lane == pixel; when no more lanes are
+    busy than the next phase holds, the busy ones compact into it (block
+    order kept) and from then on a finished sample is scatter-added to its
+    pixel as it ends. Each pixel's radiance starts from accum and adds one
+    finished sample at a time, as in the scan form. Returns the new buffer
+    and, with count_rays, the exact int64 [closest, shadow] counts: one
+    closest query per busy lane and iteration, one shadow ray per hit."""
+    batch = accum.shape[0]
+    dev = accum.device
+    sample = torch.zeros(batch, dtype=torch.int32, device=dev)
+    noise = noise_of(lanes["noise_base"], d.frame_base, sample, d.spp)
+    origin, direction = primary_ray(d.camera, lanes["u"], lanes["v_tex"], noise, d.inv_dims)
+    st = dict(sample=sample, bounce=torch.ones(batch, dtype=torch.int32, device=dev),
+              origin=origin, direction=direction, thr=torch.ones(batch, 3, device=dev),
+              srad=torch.zeros(batch, 3, device=dev), noise=noise)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    lrad, pix = accum.clone(), None
+
+    def step():
+        live = st["sample"] < d.nf
+        origin = torch.where(live[:, None], st["origin"], PARK)
+        srad, hit_lane, p, wi, albedo, ray_ok = _segment(
+            d.scene, d.sky, (d.sun_dir, d.solar), walks, origin, st["direction"], st["thr"],
+            st["srad"], st["noise"], live)
+        if count_rays:
+            counts.add_(torch.stack([live.sum(), hit_lane.sum()]))
+        scatter = hit_lane & (st["bounce"] < d.num_bounces) & ray_ok
+        term = live & ~scatter
+        # Flush each finished sample into its pixel, in sample order.
+        if pix is None:
+            lrad.copy_(torch.where(term[:, None], lrad + srad, lrad))
+        else:
+            lrad.index_add_(0, pix[term], srad[term])
+        sample = torch.where(term, st["sample"] + 1, st["sample"])
+        regen = (term & (sample < d.nf))[:, None]
+        noise_new = noise_of(lanes["noise_base"], d.frame_base, sample, d.spp)
+        po, pd = primary_ray(d.camera, lanes["u"], lanes["v_tex"], noise_new, d.inv_dims)
+        s3 = scatter[:, None]
+        st.update(
+            sample=sample,
+            bounce=torch.where(scatter, st["bounce"] + 1, torch.where(regen[:, 0], 1, st["bounce"])),
+            origin=torch.where(s3, p, torch.where(regen, po, origin)),
+            direction=torch.where(s3, wi, torch.where(regen, pd, st["direction"])),
+            thr=torch.where(s3, st["thr"] * albedo, torch.where(regen, 1.0, st["thr"])),
+            srad=torch.where(term[:, None], 0.0, srad),
+            noise=torch.where(regen, noise_new, st["noise"]),
+        )
+
+    for size in _phase_sizes(batch, floor)[1:]:
+        while int((st["sample"] < d.nf).sum()) > size:
+            step()
+        valid, pix = _compact(st["sample"] < d.nf, size, pix, batch, st, lanes)
+        st["sample"] = torch.where(valid, st["sample"], d.nf)  # padding: dead
+    while bool((st["sample"] < d.nf).any()):
+        step()
+    return (lrad, counts) if count_rays else lrad
+
+
+def accumulate_lanes_regen(
+    scene: DeviceScene,
+    sky: SkyState,
+    camera: Camera,
+    frame_base: int,
+    accum,
+    u,
+    v_tex,
+    noise_base,
+    inv_dims: tuple[float, float],
+    *,
+    num_bounces: int,
+    spp: int,
+    num_frames: int,
+    engine: str = "kernel",
+    compact_floor: int | None = None,
+    count_rays: bool = False,
+    inkernel: bool | None = None,
+    segs: int = 1,
+):
+    """Regeneration accumulation over an arbitrary set of lanes, each with
+    its pixel's data: centre u, v_tex (B,) f32 and blue-noise tile value
+    noise_base (B, 2); accum (B, 3) holds the lanes' pixels. inv_dims: 1 /
+    width, 1 / height as float32 values. The lane-level entry of
+    accumulate_samples_regen (and of a render split across devices), with
+    its engines, routes and return values."""
+    if engine not in _ENGINES and engine not in _UNFUSED:
+        raise ValueError(
+            f"unknown engine {engine!r}: the port has {sorted([*_ENGINES, *_UNFUSED])}"
+        )
+    if engine in _UNFUSED and (inkernel is not None or segs != 1):
+        raise ValueError(f"engine {engine!r} is the unfused loop: it takes no route keyword")
+    if segs != 1 and segs not in SEGS:
+        raise ValueError(f"segs={segs}: 1 (off) or one of {SEGS}")
+    if inkernel and segs != 1:
+        raise ValueError("inkernel=True and segs > 1 are two different routes")
+    if inkernel is None:
+        inkernel = segs == 1
+    dev = accum.device
+    d = _Dispatch(
+        scene=scene, sky=sky, camera=camera, kernels=_ENGINES.get(engine), inv_dims=inv_dims,
+        frame_base=frame_base, spp=spp, nf=num_frames, num_bounces=num_bounces,
+        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
+        solar=torch.as_tensor(sky.solar_radiances, device=dev),
+    )
+    lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
+    if engine in _UNFUSED:
+        floor = _COMPACT_FLOOR if compact_floor is None else compact_floor
+        return _accumulate_unfused(d, get_engine(engine), accum, lanes, floor, count_rays)
+    floor = compact_floor
+    if floor is None:
+        floor = accum.shape[0] if inkernel else _COMPACT_FLOOR
+    if inkernel:
+        return _accumulate_regen_inkernel(d, accum, lanes, floor, count_rays)
+    if segs > 1:
+        return _accumulate_regen_fused_segs(d, accum, lanes, floor, count_rays, segs)
+    return _accumulate_regen_fused(d, accum, lanes, floor, count_rays)
+
+
 def accumulate_samples_regen(
     scene: DeviceScene,
     sky: SkyState,
@@ -476,7 +830,9 @@ def accumulate_samples_regen(
     NEE shadow ray per surface hit, as the reference's megakernel traces
     them (reference_path_tracer.wgsl:180-234).
 
-    Routes, all with the same per-sample arithmetic, the default first:
+    engine="kernel" drives the fused loop through the CUDA path kernels;
+    engine="plain" through their plain torch versions (any device), by the
+    same routes, all with the same per-sample arithmetic, the default first:
     - no route keyword (inkernel=None, segs=1): the whole dispatch inside
       the kernel K4, which shades in place: one call per dispatch, or one
       per run of samples where K4's scratch would pass its cap
@@ -497,23 +853,12 @@ def accumulate_samples_regen(
     texels from global memory and walk the BVH per thread, so they take any
     scene.
 
-    engine="kernel" drives the loop through the CUDA path kernels;
-    engine="plain" through their plain torch versions (any device), by the
-    same routes."""
-    if engine not in _ENGINES:
-        raise ValueError(
-            f"unknown engine {engine!r}: the port has {sorted(_ENGINES)}"
-        )
-    if segs != 1 and segs not in SEGS:
-        raise ValueError(f"segs={segs}: 1 (off) or one of {SEGS}")
-    if inkernel and segs != 1:
-        raise ValueError("inkernel=True and segs > 1 are two different routes")
-    if inkernel is None:
-        inkernel = segs == 1
+    engine="kernel_split" runs the unfused loop (_accumulate_unfused) over
+    the ray queries K1/K2 (the JAX "pallas_split"), engine="reference" the
+    same loop over the plane walk (the JAX "reference"); they take no route
+    keyword."""
     dev = accum.device
-    ys_np, xs_np, _ = block_order(width, height)
-    ys = torch.from_numpy(ys_np).to(dev)
-    xs = torch.from_numpy(xs_np).to(dev)
+    ys, xs = _pixels(width, height, dev)
     u = (xs.to(torch.float32) + 0.5) / float(width)
     v_tex = (ys.to(torch.float32) + 0.5) / float(height)
     # The tile value is a function of the pixel: gather it once per call;
@@ -522,21 +867,100 @@ def accumulate_samples_regen(
     noise_base = blue_noise_tile[(ys % th).long(), (xs % tw).long()]
     inv_dims = (float(np.float32(1.0) / np.float32(width)),
                 float(np.float32(1.0) / np.float32(height)))
-    d = _Dispatch(
-        scene=scene, sky=sky, camera=camera, kernels=_ENGINES[engine], inv_dims=inv_dims,
-        frame_base=frame_base, spp=spp, nf=num_frames, num_bounces=num_bounces,
-        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
-        solar=torch.as_tensor(sky.solar_radiances, device=dev),
+    return accumulate_lanes_regen(
+        scene, sky, camera, frame_base, accum, u, v_tex, noise_base, inv_dims,
+        num_bounces=num_bounces, spp=spp, num_frames=num_frames, engine=engine,
+        compact_floor=compact_floor, count_rays=count_rays, inkernel=inkernel, segs=segs,
     )
-    lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
-    floor = compact_floor
-    if floor is None:
-        floor = accum.shape[0] if inkernel else _COMPACT_FLOOR
-    if inkernel:
-        return _accumulate_regen_inkernel(d, accum, lanes, floor, count_rays)
-    if segs > 1:
-        return _accumulate_regen_fused_segs(d, accum, lanes, floor, count_rays, segs)
-    return _accumulate_regen_fused(d, accum, lanes, floor, count_rays)
+
+
+def pick_accumulator(scene: DeviceScene, engine: str):
+    """The progressive accumulator of render_image and the Renderer.
+
+    On "kernel" and "plain" the fused regeneration loop
+    (accumulate_samples_regen) on every scene: its routes take any scene
+    (the CUDA kernels walk the BVH per thread and read the shading tables
+    from global memory), and the JAX package's sorted fused loop for big
+    scenes only reorders lanes, which changes no pixel, so its image is the
+    unsorted loop's. On the unfused engines ("kernel_split", "reference"),
+    as in the JAX package: the regeneration loop on scenes of at most
+    SORT_THRESHOLD clusters, and the scan form (accumulate_samples), whose
+    per-bounce coherence sort needs lane-free pixels, on bigger ones."""
+    if engine in _ENGINES or scene.num_clusters <= SORT_THRESHOLD:
+        return accumulate_samples_regen
+    return accumulate_samples
+
+
+def accumulate_samples_window(
+    scene: DeviceScene,
+    sky: SkyState,
+    camera: Camera,
+    blue_noise_tile,
+    frame_base: int,
+    accum,
+    x0: int,
+    y0: int,
+    *,
+    win_w: int,
+    win_h: int,
+    width: int,
+    height: int,
+    num_bounces: int,
+    spp: int,
+    num_frames: int,
+    engine: str = "kernel",
+):
+    """accumulate_samples over the (win_w, win_h) window at (x0, y0) of a
+    width x height image: the window's pixels take their global coordinates,
+    so their noise and rays are those of the whole image's (the reference
+    bounds work volume the same way, capping buffers to device limits,
+    reference_path_tracer.cpp:253-263). accum: (win_h * win_w, 3), block
+    order of the window."""
+    ys, xs = _pixels(win_w, win_h, accum.device, x0, y0)
+    return _scan_frames(scene, sky, camera, blue_noise_tile, frame_base, accum, ys, xs,
+                        width=width, height=height, num_bounces=num_bounces, spp=spp,
+                        num_frames=num_frames, engine=engine)
+
+
+def render_image_tiled(
+    scene: DeviceScene,
+    sky: SkyState,
+    camera: Camera,
+    *,
+    width: int,
+    height: int,
+    sampling: SamplingParams = SamplingParams(),
+    exposure: float = 1.0,
+    engine: str = "kernel",
+    tile_w: int = 512,
+    tile_h: int = 512,
+    samples_per_dispatch: int = 8,
+) -> np.ndarray:
+    """Render a large image window by window through the scan form, so any
+    resolution renders with bounded work per call. Every window has one
+    shape: edge windows are moved inside the image (clamped offsets) and
+    overlap their neighbours, whose pixels they render again identically.
+    Returns (H, W, 3) float32 numpy in [0, 1]."""
+    dev = scene.device
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+    spp = sampling.num_samples_per_pixel
+    win_w, win_h = min(tile_w, width), min(tile_h, height)
+    out = np.empty((height, width, 3), np.float32)
+    for y0 in range(0, height, tile_h):
+        for x0 in range(0, width, tile_w):
+            wx, wy = min(x0, width - win_w), min(y0, height - win_h)
+            accum = torch.zeros(win_h * win_w, 3, device=dev)
+            frame = 0
+            while frame < spp:
+                n = min(samples_per_dispatch, spp - frame)
+                accum = accumulate_samples_window(
+                    scene, sky, camera, tile, frame, accum, wx, wy, win_w=win_w, win_h=win_h,
+                    width=width, height=height, num_bounces=sampling.num_bounces, spp=spp,
+                    num_frames=n, engine=engine)
+                frame += n
+            img = tonemap(unswizzle(accum, win_w, win_h) / float(spp), exposure)
+            out[wy:wy + win_h, wx:wx + win_w] = img.reshape(win_h, win_w, 3).cpu().numpy()
+    return out
 
 
 def render_image(
@@ -553,21 +977,32 @@ def render_image(
     inkernel: bool | None = None,
     segs: int = 1,
 ) -> np.ndarray:
-    """Render a full image on the scene's device: spp progressive samples,
-    running-mean estimator, ACES tonemap + gamma (wgsl:59-63). Returns
-    (H, W, 3) float32 numpy in [0, 1]. inkernel and segs choose the route
-    (accumulate_samples_regen; by default each dispatch runs inside K4)."""
+    """Render a full image on the scene's device: spp progressive samples
+    through pick_accumulator's choice, running-mean estimator, ACES tonemap
+    + gamma (wgsl:59-63). Returns (H, W, 3) float32 numpy in [0, 1].
+    inkernel and segs choose the fused loop's route on "kernel" and "plain"
+    (accumulate_samples_regen; by default each dispatch runs inside K4).
+
+    The JAX package caps big scenes at 4 samples per dispatch, to keep a
+    TPU worker from crashing on long programs; nothing here needs it."""
     dev = scene.device
     tile = torch.from_numpy(blue_noise_tile()).to(dev)
     accum = torch.zeros(height * width, 3, device=dev)
     spp = sampling.num_samples_per_pixel
+    accumulate = pick_accumulator(scene, engine)
+    route = {}
+    if inkernel is not None or segs != 1:
+        if engine not in _ENGINES:
+            raise ValueError(f"engine {engine!r} has no routes: inkernel and segs are the "
+                             f"fused loop's ({sorted(_ENGINES)})")
+        route = dict(inkernel=inkernel, segs=segs)
     frame = 0
     while frame < spp:
         n = min(samples_per_dispatch, spp - frame)
-        accum = accumulate_samples_regen(
+        accum = accumulate(
             scene, sky, camera, tile, frame, accum,
             width=width, height=height, num_bounces=sampling.num_bounces,
-            spp=spp, num_frames=n, engine=engine, inkernel=inkernel, segs=segs,
+            spp=spp, num_frames=n, engine=engine, **route,
         )
         frame += n
     img = tonemap(unswizzle(accum, width, height) / float(spp), exposure)

@@ -5,6 +5,8 @@ Counterpart of `rayfinder_tpu.render.rng` (the reference's
 noise is the 128x128 blue-noise tile value plus the frame's R2 offset,
 wrapped to [0, 1). One value serves every sampling decision a pixel makes in
 a frame.
+`noise_of` is the regeneration loop's per-lane form, `animated_blue_noise`
+the scan form's per-pixel one; both are the same arithmetic.
 """
 
 from __future__ import annotations
@@ -39,3 +41,17 @@ def noise_of(noise_base, frame_base: int, sample, spp: int):
     r2 = r2 - torch.floor(r2)
     out = noise_base + r2
     return out - torch.floor(out)
+
+
+def animated_blue_noise(coords_y, coords_x, frame_idx: int, total_sample_count: int, tile=None):
+    """Per-pixel animated 2D noise of frame `frame_idx` (wgsl:602-616).
+
+    coords_y/coords_x: integer pixel coordinates (top-left origin), any
+    shape; tile: the (128, 128, 2) f32 tile on their device (loaded when
+    None). Returns (..., 2) float32 in [0, 1): noise_of with the pixel's tile
+    value and sample 0 of frame_base frame_idx."""
+    if tile is None:
+        tile = torch.from_numpy(blue_noise_tile()).to(coords_y.device)
+    h, w = tile.shape[0], tile.shape[1]
+    base = tile[(coords_y % h).long(), (coords_x % w).long()]
+    return noise_of(base, frame_idx, torch.zeros_like(coords_y), total_sample_count)

@@ -29,6 +29,14 @@ from them:
 A leaf is a node with `tri_count > 0`, as the walks read it. The root's own
 box stays in the SoA planes, which the plain torch walk reads.
 
+The scene also carries `num_clusters`, the number of BVH-treelet clusters
+the JAX package cuts the same triangles into (bvh/clusters.py
+`treelet_ranges`): the scan integrator sorts bounce rays on scenes with
+more clusters than `render/pathtracer.py SORT_THRESHOLD`, as the JAX one
+does on `cluster_tris.shape[0]`. The JAX scene pads its cluster list only
+above 512 clusters, so the two counts are equal wherever the decision
+could differ.
+
 The entry points put the scene on the card unless the caller names another
 device. They take the port's `FlattenedScene` and `Texture` and the JAX
 package's alike (dataclasses with the same fields).
@@ -38,11 +46,13 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
+import types
 
 import numpy as np
 import torch
 
 from ..bvh import Bvh, reorder_attributes
+from ..bvh.clusters import DEFAULT_LEAF_SIZE, treelet_ranges
 from ..scene import FlattenedScene, Texture
 
 # Packed-texel-atlas budget, as in rayfinder_tpu.render.scene (the
@@ -84,6 +94,10 @@ class DeviceScene:
     bvh_nodes2: torch.Tensor  # (M, 16) i32, one record per interior node
     tri_pos4: torch.Tensor  # (T, 12) f32
 
+    # BVH-treelet clusters of the JAX package's scene (module docstring); an
+    # int on the host, not a tensor.
+    num_clusters: int
+
     @property
     def num_triangles(self) -> int:
         return self.tri_positions.shape[0]
@@ -97,10 +111,14 @@ class DeviceScene:
         return self.tri_positions.device
 
     def to(self, device) -> "DeviceScene":
-        return DeviceScene(**{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-        })
+        """The scene on `device`; `num_clusters` is carried as it is."""
+        return dataclasses.replace(self, **{name: getattr(self, name).to(device)
+                                            for name in tensor_fields()})
+
+
+def tensor_fields() -> list[str]:
+    """The names of DeviceScene's tensor fields (all but num_clusters)."""
+    return [f.name for f in dataclasses.fields(DeviceScene) if f.name != "num_clusters"]
 
 
 def _scene_arrays(
@@ -191,15 +209,24 @@ def _walk_tables(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return dict(bvh_nodes2=nodes2, tri_pos4=tri_pos4.reshape(-1, 12))
 
 
+def _num_clusters(arrays: dict[str, np.ndarray]) -> int:
+    """The JAX scene's unpadded cluster count: its treelet ranges of at most
+    DEFAULT_LEAF_SIZE leaf-order triangles, from the SoA planes."""
+    bvh = types.SimpleNamespace(triangle_count=arrays["bvh_tri_count"],
+                                triangles_offset=arrays["bvh_tri_offset"],
+                                second_child_offset=arrays["bvh_second_child"])
+    return len(treelet_ranges(bvh, DEFAULT_LEAF_SIZE, np.asarray(arrays["tri_positions"])))
+
+
 def _upload(arrays: dict[str, np.ndarray], device) -> DeviceScene:
     arrays = {**arrays, **_walk_tables(arrays)}
     fields = {}
-    for f in dataclasses.fields(DeviceScene):
-        a = np.asarray(arrays[f.name])
-        if f.name == "texels":
+    for name in tensor_fields():
+        a = np.asarray(arrays[name])
+        if name == "texels":
             a = a.astype(np.uint32).view(np.int32)
-        fields[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
-    return DeviceScene(**fields)
+        fields[name] = torch.from_numpy(np.array(a, order="C")).to(device)
+    return DeviceScene(**fields, num_clusters=_num_clusters(arrays))
 
 
 def build_device_scene(
@@ -221,7 +248,8 @@ def build_device_scene(
 def scene_from_jax(arrays: dict[str, np.ndarray], device="cuda") -> DeviceScene:
     """Carry a JAX `DeviceScene` over: `arrays` maps its field names to
     numpy arrays (`np.asarray` of each field). The TPU cluster fields are
-    ignored; the packed walk tables are built from the SoA planes."""
+    ignored; the packed walk tables and the cluster count are built from the
+    SoA planes."""
     return _upload(arrays, device)
 
 

@@ -7,9 +7,9 @@ the reference uploads to the GPU (src/common/texture.{hpp,cpp}), so that the
 (src/pt/reference_path_tracer.wgsl:552-565).
 
 Counterpart of `rayfinder_tpu.scene.texture`. The machine with the GPU has
-no Pillow, so PNGs of the plain form this package writes (8-bit RGBA, no
-interlace, filter 0 on every row: `encode_png`) are encoded and decoded with
-zlib alone; any other image needs Pillow.
+no Pillow, so PNGs of the plain form this package writes (8-bit RGB or
+RGBA, no interlace, filter 0 on every row: `encode_png`) are encoded and
+decoded with zlib alone; any other image needs Pillow.
 """
 
 from __future__ import annotations
@@ -30,19 +30,24 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+# PNG colour types by channel count: RGB, RGBA.
+_COLOR_TYPE = {3: 2, 4: 6}
+
+
 def encode_png(rgba: np.ndarray) -> bytes:
-    """(h, w, 4) uint8 RGBA -> PNG bytes: 8-bit RGBA, filter 0 on every row."""
-    h, w, _ = rgba.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgba.reshape(h, 4 * w)], axis=1)
+    """(h, w, 4) uint8 RGBA or (h, w, 3) RGB -> PNG bytes: 8-bit RGBA or
+    RGB, filter 0 on every row."""
+    h, w, c = rgba.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgba.reshape(h, c * w)], axis=1)
     return (_PNG_SIGNATURE
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0))
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
 
 
 def _decode_plain_png(data: bytes) -> np.ndarray | None:
-    """(h, w, 4) uint8 RGBA of a PNG in `encode_png`'s form; None for any
-    other image."""
+    """(h, w, 4) uint8 RGBA or (h, w, 3) RGB of a PNG in `encode_png`'s
+    form; None for any other image."""
     if not data.startswith(_PNG_SIGNATURE):
         return None
     pos, idat, header = len(_PNG_SIGNATURE), [], None
@@ -56,26 +61,30 @@ def _decode_plain_png(data: bytes) -> np.ndarray | None:
         elif kind == b"IEND":
             break
         pos += 12 + length
-    if header is None or header[2:] != (8, 6, 0, 0, 0):
+    channels = {t: c for c, t in _COLOR_TYPE.items()}
+    if header is None or header[3] not in channels or header[2:] != (8, header[3], 0, 0, 0):
         return None
-    w, h = header[:2]
+    w, h, c = header[0], header[1], channels[header[3]]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != h * (4 * w + 1):
+    if rows.size != h * (c * w + 1):
         return None
-    rows = rows.reshape(h, 4 * w + 1)
+    rows = rows.reshape(h, c * w + 1)
     if rows[:, 0].any():
         return None
-    return rows[:, 1:].reshape(h, w, 4)
+    return rows[:, 1:].reshape(h, w, c)
 
 
-def _decode_with_pillow(data: bytes) -> np.ndarray:
+def _decode_with_pillow(data: bytes, convert: str | None = "RGBA") -> np.ndarray:
+    """The image's pixels through Pillow, converted to mode `convert` (as
+    stored when None). Raises when Pillow is not installed."""
     if importlib.util.find_spec("PIL") is None:
         raise RuntimeError(
             "decoding this image needs Pillow, which is not installed (only "
-            "8-bit RGBA PNGs with filter 0 on every row decode without it)")
+            "8-bit RGB or RGBA PNGs with filter 0 on every row decode without it)")
     from PIL import Image
 
-    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"), dtype=np.uint8)
+    image = Image.open(io.BytesIO(data))
+    return np.asarray(image if convert is None else image.convert(convert), dtype=np.uint8)
 
 
 @dataclasses.dataclass(frozen=True)

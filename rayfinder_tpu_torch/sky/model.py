@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 
+SOLAR_RADIUS_RADIANS = np.float32(0.004450589)  # 0.255 degrees (hw_skymodel.c:16)
+
 # The fit tables: the port's copy of the JAX package's asset.
 _ASSETS = pathlib.Path(__file__).resolve().parents[1] / "assets"
 
@@ -173,6 +175,16 @@ def sky_radiance_dist(state: SkyState, theta, gamma):
     theta = theta[..., None]
     gamma = gamma[..., None]
     return _perez(state, torch.abs(torch.cos(theta)), torch.cos(gamma), gamma)
+
+
+def sky_radiance(state: SkyState, theta, gamma):
+    """Full radiance including the constant solar disk (hw_skymodel.c:182-223):
+    the CPU demo's semantics. theta/gamma: (...,) f32 tensors. Returns
+    (..., 3)."""
+    base = sky_radiance_dist(state, theta, gamma)
+    solar = torch.as_tensor(state.solar_radiances, device=gamma.device)
+    in_disk = (gamma / float(SOLAR_RADIUS_RADIANS) <= 1.0)[..., None]
+    return base + torch.where(in_disk, solar, 0.0)
 
 
 def sky_radiance_dir(state: SkyState, direction):

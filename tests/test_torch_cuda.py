@@ -742,3 +742,92 @@ def test_path_kernels_need_the_packed_tables(dev, scene8):
                                    st["contrib"])
         assert (trace_regen.launches, trace_regen_segs.launches,
                 trace_regen_shaded.launches) == before
+
+
+def test_walk_kernels_equal_plain_on_the_scan_forms_rays(dev, scene8, monkeypatch):
+    """K1/K2 at the scan form's inputs: every closest-hit and shadow query
+    of one trace_radiance over 128x96 pixels (the bounce sort on, lanes
+    parked at 1e30 from bounce 2 on) held to the plain versions exactly."""
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    calls = []
+
+    def record(kind, fn):
+        def wrapped(scene, o, d, t_max):
+            calls.append((kind, o.clone(), d.clone(), t_max.clone()))
+            return fn(scene, o, d, t_max)
+        return wrapped
+
+    closest, any_hit = pt._WALKS["kernel"]
+    monkeypatch.setitem(pt._WALKS, "kernel", (record("closest", closest), record("any", any_hit)))
+    assert scene8.num_clusters > pt.SORT_THRESHOLD
+    w, h = 128, 96
+    pt.accumulate_sample(
+        scene8, sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0),
+        create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h),
+        torch.from_numpy(blue_noise_tile()).to(dev), 3, torch.zeros(w * h, 3, device=dev),
+        width=w, height=h, num_bounces=4, spp=8)
+    assert [c[0] for c in calls] == ["closest", "any"] * 4
+    parked = 0
+    for kind, o, d, t_max in calls:
+        parked += int((o == 1e30).all(1).sum())
+        if kind == "closest":
+            for a, b in zip(walk.intersect_closest_kernel(scene8, o, d, t_max),
+                            walk.intersect_closest_reference(scene8, o, d, t_max)):
+                assert torch.equal(a, b)
+        else:
+            assert torch.equal(walk.intersect_any_kernel(scene8, o, d, t_max),
+                               walk.intersect_any_reference(scene8, o, d, t_max))
+    assert parked > 0
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_unfused_loop_and_tiled_scan_form_match_the_default_route(dev, textured):
+    """128x96, 8 spp, 4 bounces: the unfused loop over K1/K2 counts the
+    default route's rays exactly and equals itself over the plane walk bit
+    for bit; render_image_tiled (scan form, 64x48 windows) over K1/K2 equals
+    its plain version (one window) bit for bit; every image is within RMSE
+    1e-3 of the default route's and 5e-3 of the golden."""
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.render.tiling import unswizzle
+    from rayfinder_tpu_torch.render.tonemap import tonemap
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    flat, textures = courtyard_scene(8, textured=textured)
+    scene = build_device_scene(flat, textures=textures, device=dev)
+    w, h, spp = 128, 96, 8
+    cam = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+    accums, counts = {}, {}
+    for engine in ("kernel", "kernel_split", "reference"):
+        before = walk.intersect_closest_kernel.launches
+        accums[engine], counts[engine] = pt.accumulate_samples_regen(
+            scene, sky, cam, tile, 0, torch.zeros(w * h, 3, device=dev), width=w, height=h,
+            num_bounces=4, spp=spp, num_frames=spp, engine=engine, count_rays=True)
+        assert (walk.intersect_closest_kernel.launches > before) == (engine == "kernel_split")
+    assert torch.equal(counts["kernel_split"], counts["kernel"])
+    assert torch.equal(counts["reference"], counts["kernel"])
+    assert torch.equal(accums["kernel_split"], accums["reference"])
+    images = {k: tonemap(unswizzle(a, w, h) / float(spp), 0.25).reshape(h, w, 3).cpu().numpy()
+              for k, a in accums.items()}
+    # The plain version in one window: the windows change no pixel.
+    for engine, tile_w, tile_h in (("kernel", 64, 48), ("plain", w, h)):
+        before = walk.intersect_any_kernel.launches
+        images[f"tiled {engine}"] = pt.render_image_tiled(
+            scene, sky, cam, width=w, height=h, sampling=pt.SamplingParams(spp, 4),
+            exposure=0.25, engine=engine, tile_w=tile_w, tile_h=tile_h)
+        assert walk.intersect_any_kernel.launches - before == (128 if engine == "kernel" else 0)
+    np.testing.assert_array_equal(images["tiled kernel"], images["tiled plain"])
+    golden = np.load(GOLDENS / f"courtyard_{'' if textured else 'un'}textured_128x96_8spp.npz")
+    for name, img in images.items():
+        assert np.sqrt(np.mean((img - images["kernel"]) ** 2)) < 1e-3, name
+        assert np.sqrt(np.mean((img - golden["image"]) ** 2)) < 5e-3, name

@@ -30,7 +30,8 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = list(_modules()) + ["chip_smoke"]
     for m in ("ops.regen", "ops.regen_shaded", "ops.regen_segs", "render.shade", "ops.counted",
-              "ops.slab", "ops.skyround", "prof.diag_iters", "scene.procedural", "io.ptformat"):
+              "ops.slab", "ops.skyround", "prof.diag_iters", "scene.procedural", "io.ptformat",
+              "render.renderer", "tools.sky_demo", "utils.math", "utils.image"):
         assert f"rayfinder_tpu_torch.{m}" in mods
     code = (
         "import os, sys\n"

@@ -16,10 +16,10 @@ from rayfinder_tpu.render.scene import build_device_scene as jax_build
 from rayfinder_tpu.render.scene import load_device_scene as jax_load
 from rayfinder_tpu.scene.procedural import courtyard_scene
 from rayfinder_tpu_torch.render.scene import (
-    DeviceScene, build_device_scene, load_device_scene, scene_from_jax,
+    DeviceScene, build_device_scene, load_device_scene, scene_from_jax, tensor_fields,
 )
 
-FIELDS = [f.name for f in dataclasses.fields(DeviceScene)]
+FIELDS = tensor_fields()
 SHARED = [name for name in FIELDS if name not in ("bvh_nodes2", "tri_pos4")]
 
 
@@ -56,6 +56,7 @@ def test_scene_matches_jax(source, tmp_path):
         port, want = build_device_scene(flat, textures=textures, device="cpu"), jax_build(flat, textures=textures)
     assert port.num_triangles == want.num_triangles
     assert port.num_nodes == want.num_nodes
+    assert port.num_clusters == want.cluster_tris.shape[0]
     _assert_same(port, want)
 
 
@@ -68,6 +69,7 @@ def test_scene_from_jax_carries_every_field():
     built = build_device_scene(flat, textures=textures, device="cpu")
     for name in FIELDS:
         assert torch.equal(getattr(port, name), getattr(built, name)), name
+    assert port.num_clusters == built.num_clusters == want.cluster_tris.shape[0]
 
 
 def test_scene_to_device_keeps_values():
@@ -77,6 +79,7 @@ def test_scene_to_device_keeps_values():
     assert moved.device == torch.device("cpu")
     for name in FIELDS:
         assert torch.equal(getattr(moved, name), getattr(scene, name)), name
+    assert moved.num_clusters == scene.num_clusters > 0
 
 
 def test_oversized_texture_atlas_raises(monkeypatch):
