@@ -82,14 +82,32 @@ kernels from csrc/, then:
    on change only); 1920x1080 at 4 spp tiled (scan form) against untiled
    (default route), RMSE < 1e-3, and the default route's seconds per
    sample and time to 1024 spp there. One more dispatch of each form on the
-   slice runs under torch.profiler for the device's busy share.
+   slice runs under torch.profiler for the device's busy share;
+10. (run after 8) the deferred renderer and the interactive layer over
+   K1/K2: (a) three DeferredRenderer frames of each courtyard_scene(8) at
+   128x96 on K1/K2 and on their plain versions, the accumulators bit for
+   bit, displays and debug triptychs equal and within RMSE 5e-3 of
+   tests/goldens/courtyard_deferred_128x96_f3.npz, and the sun check;
+   (b) the slice's path: DeferredRenderer on courtyard_scene(26) at
+   1920x1080 (bench camera and sky), two warm-up and eight timed frames
+   (ms per frame, synchronised, u8 readback included; 2 K1 + 2 K2 launches
+   per frame, counted over the timed frames), the three passes unfused
+   between CUDA events, one frame under torch.profiler, the peak memory,
+   one frame's four queries launched at full width, each launch's result
+   held to the plain walks on its first and last 262,144 rays and timed,
+   and every ray passed through against the dropped lanes parked, in
+   turns; (c) a scripted ViewerSession on the slice's scene at 640x480 (pt
+   frames with the Mrays/s readout, a move resetting both renderers, a
+   focus pick through K1, deferred and debug frames, every PNG written);
+   (d) the BVH heat map of the slice's .pt at 1280x720, K1's node counts
+   equal to the plain walk's on its first and last 262,144 rays, and
+   tools/render.py on procedural:courtyard:26 at 640x480, 16 spp.
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
 (time, plain time, launches on the run that drives each kernel -- for K1
-and K2 the scan form's slice dispatch, with every path's count beside it --
-bound, and
-two closer figures beside it: the issue limit without FMAs and, for a walk,
+and K2 phase 10's timed 1080p deferred frames, with every path's count
+beside it -- bound, and two closer figures beside it: the issue limit without FMAs and, for a walk,
 the bytes its rays load at the measured rate of data held in L2); the
 last is {"ok": true, "device": {...}}. Every printed time names the card and
 its power limit; the total seconds stand on a line before the card's.
@@ -110,11 +128,14 @@ script times an older tree in turns with a newer one.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -630,6 +651,7 @@ def _efficiency(dev, card: str) -> tuple[list, dict, object]:
                _k7_entry(boxes, o, d, prim["bound"], launches[1], k7_err, card)]
     fields = {k: v for k, v in fields.items() if not k.startswith("need_over_tests")}
     fields["rays"] = {name: int(r["o"].shape[0]) for name, r in results.items()}
+    fields["pt_path"] = info["path"]
     return entries, fields, scene
 
 
@@ -1545,7 +1567,6 @@ def _renderer_check(scene, camera, dev, card: str) -> dict:
     a checkpoint saved and loaded on the card bit for bit; reset only on a
     real parameter change."""
     import dataclasses
-    import tempfile
 
     import numpy as np
     import torch
@@ -1645,6 +1666,474 @@ def _full_hd(scene, sky, tile, dev, card: str) -> dict:
             "launches_tiled": launches, "seconds_per_sample": per_sample,
             "time_to_1024spp_1080p_s": 1024 * per_sample, "rays_32": rays.tolist(),
             "card": card}
+
+# Phase 10: the deferred renderer and the interactive layer over K1/K2.
+DEFERRED_HD = dict(width=1920, height=1080, warm_frames=2, timed_frames=8)
+# The rays at each end of a full-width query held to the plain walks (the
+# plain walk takes ~0.7 s per 262,144 rays on the card).
+QUERY_WINDOW = 262_144
+VIEWER_SIZE = (640, 480)
+HEAT_SIZE = (1280, 720)
+RENDER_TOOL = dict(scene="procedural:courtyard:26", size=(640, 480), spp=16)
+
+
+def _tagged(card: str, fn):
+    """fn(), with each line it prints reprinted with the card's name and
+    power limit (the viewer's readouts, the render tool's lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    for line in buf.getvalue().splitlines():
+        print(f"{line} [{card}]", flush=True)
+    return out
+
+
+def _deferred_small(scenes: dict, dev, card: str) -> dict:
+    """Phase 10 (a): three DeferredRenderer frames of each courtyard_scene(8)
+    at 128x96 on the kernels K1/K2 ("kernel") and on their plain versions
+    ("plain"): the TAA accumulators equal bit for bit, the displays and the
+    debug triptychs equal, each within RMSE 5e-3 of the JAX-baked golden
+    (tests/goldens/courtyard_deferred_128x96_f3.npz); two K1 and two K2
+    launches per frame on "kernel", none on "plain". Then the sun check: a
+    9x9 camera above the untextured scene's root box staring at the sun
+    reads above 1e4 at the centre pixel."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(GOLDENS))
+    import bake_torch_smoke as cfg
+
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.deferred import DeferredRenderer, gbuffer_pass, lighting_pass
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    golden = np.load(cfg.DEFERRED_GOLDEN)
+    w, h = cfg.WIDTH, cfg.HEIGHT
+    cam = create_camera(*cfg.CAMERA, w / h)
+    out = {}
+    for kind, scene in scenes.items():
+        renderers = {e: DeferredRenderer(scene, w, h, engine=e) for e in ("kernel", "plain")}
+        images, launches, secs = {}, {}, {}
+        for engine, r in renderers.items():
+            _zero_launches()
+            t0 = time.perf_counter()
+            for _ in range(cfg.DEFERRED_FRAMES):
+                images[engine] = r.render(cam, sky_state_from_ui(*cfg.SKY), cfg.EXPOSURE)
+            secs[engine] = time.perf_counter() - t0
+            launches[engine] = _launch_counts()
+        with np.errstate(invalid="ignore"):
+            debug = {e: r.render_debug(cam) for e, r in renderers.items()}
+        same_accum = bool(torch.equal(renderers["kernel"].accum, renderers["plain"].accum))
+        same_display = bool(np.array_equal(images["kernel"], images["plain"]))
+        same_debug = bool(np.array_equal(debug["kernel"], debug["plain"], equal_nan=True))
+        vs_golden = _rmse(images["kernel"], golden[f"{kind}_display"] / 255.0)
+        debug_vs_golden = _rmse(np.nan_to_num(debug["kernel"]),
+                                np.nan_to_num(golden[f"{kind}_debug"]))
+        print(f"deferred {kind} courtyard8 128x96, {cfg.DEFERRED_FRAMES} frames: kernel "
+              f"{secs['kernel']:.3f} s (K1/K2 launches {launches['kernel']}), plain "
+              f"{secs['plain']:.3f} s; accumulator kernel == plain {same_accum}, display "
+              f"{same_display}, debug {same_debug}; RMSE vs golden display {vs_golden:.3e}, "
+              f"debug {debug_vs_golden:.3e} [{card}]", flush=True)
+        per_run = 2 * cfg.DEFERRED_FRAMES
+        _require(launches["kernel"] == {"K1": per_run, "K2": per_run},
+                 f"deferred {kind}: the kernel frames launched {launches['kernel']}")
+        _require(launches["plain"] == {"K1": 0, "K2": 0}, f"deferred {kind}: plain launched K1/K2")
+        _require(same_accum and same_display and same_debug,
+                 f"deferred {kind}: the frames on K1/K2 differ from their plain versions")
+        _require(vs_golden < 5e-3 and debug_vs_golden < 5e-3,
+                 f"deferred {kind}: the frames differ from the golden")
+        out[kind] = {"seconds": secs, "launches": launches, "rmse_golden": vs_golden,
+                     "rmse_golden_debug": debug_vs_golden}
+
+    scene = scenes["untextured"]
+    sky = sky_state_from_ui(1.0, (1.0, 1.0, 1.0), 30.0, 0.0)
+    sun_dir = np.asarray(sky.sun_direction, np.float64)
+    origin = np.asarray([0.0, float(scene.bvh_aabb_max[0, 1]) + 50.0, 0.0])
+    sun_cam = create_camera(origin, origin + sun_dir, 0.0, 1.0, 10.0, 1.0)
+    gbuf = gbuffer_pass(scene, sun_cam, 0, width=9, height=9)
+    centre = lighting_pass(scene, sky, gbuf, 0, width=9, height=9)[40].max().item()
+    print(f"deferred sun check: the centre pixel of a 9x9 camera staring at the sun reads "
+          f"{centre:.1f} (no hit: {not bool(gbuf['hit'].any())}) [{card}]", flush=True)
+    _require(centre > 1e4 and not bool(gbuf["hit"].any()), "the deferred miss has no solar disk")
+    out["sun_centre"] = centre
+    return out
+
+
+def _record_queries(fn) -> tuple:
+    """fn() with every K1/K2 query of the "kernel" engine recorded:
+    (fn's result, [(kind, o, d, t_max), ...] in call order)."""
+    from rayfinder_tpu_torch.render import pathtracer as pt
+
+    calls = []
+    closest, any_hit = pt._WALKS["kernel"]
+
+    def record(kind, query):
+        def wrapped(scene, o, d, t_max):
+            calls.append((kind, o, d, t_max))
+            return query(scene, o, d, t_max)
+        return wrapped
+
+    pt._WALKS["kernel"] = (record("closest", closest), record("any", any_hit))
+    try:
+        out = fn()
+    finally:
+        pt._WALKS["kernel"] = (closest, any_hit)
+    return out, calls
+
+
+def _parking_ab(scene, cam, sky, card: str, rounds: int = 3) -> dict:
+    """The deferred frame as it ships, every ray passed to K1/K2 as the JAX
+    package passes them, against the same frame with the lanes whose result
+    the pass drops parked far outside the scene (a miss pixel's three
+    lighting queries, a missed bounce's sun sample), at 1920x1080 in turns
+    (parked, through, through, parked) x rounds after a warm-up frame each:
+    the wall of each render() and the CUDA-event span of its frame_pass,
+    medians. The two renderers' accumulators must stay equal bit for bit: a
+    lane's result that the pass drops may not reach the image."""
+    import statistics
+
+    import torch
+
+    from rayfinder_tpu_torch.render import deferred
+    from rayfinder_tpu_torch.render.deferred import DeferredRenderer
+    from rayfinder_tpu_torch.render.shade import PARK
+
+    closest, any_hit, frame_pass = deferred._closest, deferred._any, deferred.frame_pass
+    # A frame's queries in order: primaries (all live), the G-buffer's sun
+    # sample (live: hit), the bounce (hit), the bounce's sun sample (hit &
+    # the bounce's hit). masks holds the live sets the closest queries found.
+    masks = []
+
+    def park(o, d, live):
+        if live is None:
+            return o, d
+        return torch.where(live[:, None], o, PARK), torch.where(live[:, None], d, 1.0)
+
+    def parked_closest(scene, o, d, engine):
+        live = masks[0] if masks else None
+        hit, t, tri = closest(scene, *park(o, d, live), engine)
+        masks.append(hit if live is None else live & hit)
+        return hit, t, tri
+
+    def parked_any(scene, o, d, engine):
+        return any_hit(scene, *park(o, d, masks[-1]), engine)
+
+    def spanned(*args, **kwargs):
+        spanned.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        spanned.events[0].record()
+        out = frame_pass(*args, **kwargs)
+        spanned.events[1].record()
+        return out
+
+    w, h = DEFERRED_HD["width"], DEFERRED_HD["height"]
+    forms = {"through": (closest, any_hit), "parked": (parked_closest, parked_any)}
+    renderers = {k: DeferredRenderer(scene, w, h) for k in forms}
+    wall = {k: [] for k in forms}
+    span = {k: [] for k in forms}
+
+    def frame(form: str, timed: bool) -> None:
+        masks.clear()
+        deferred._closest, deferred._any = forms[form]
+        deferred.frame_pass = spanned
+        try:
+            t0 = time.perf_counter()
+            renderers[form].render(cam, sky, 0.25)
+            t1 = time.perf_counter()
+        finally:
+            deferred._closest, deferred._any, deferred.frame_pass = closest, any_hit, frame_pass
+        if timed:
+            wall[form].append(1e3 * (t1 - t0))
+            span[form].append(spanned.events[0].elapsed_time(spanned.events[1]))
+
+    for form in forms:
+        frame(form, False)
+    for _ in range(rounds):
+        for form in ("parked", "through", "through", "parked"):
+            frame(form, True)
+    same = bool(torch.equal(renderers["parked"].accum, renderers["through"].accum))
+    out = {k: {"wall_ms": wall[k], "span_ms": span[k],
+               "median_wall_ms": statistics.median(wall[k]),
+               "median_span_ms": statistics.median(span[k])} for k in forms}
+    print("deferred 1080p, every ray passed through (as shipped) against the dropped lanes "
+          "parked, in turns: " + "; ".join(
+              f"{k} median {v['median_wall_ms']:.3f} ms per render(), frame_pass span "
+              f"{v['median_span_ms']:.3f} ms (walls {[round(x, 3) for x in v['wall_ms']]})"
+              for k, v in out.items()) + f"; accumulators equal {same} [{card}]", flush=True)
+    _require(same, "parking the dropped lanes changed the deferred image")
+    out["equal"] = same
+    return out
+
+
+def _deferred_full_hd(scene, dev, card: str) -> dict:
+    """Phase 10 (b), the slice's path: DeferredRenderer on courtyard_scene(26)
+    at 1920x1080 with the bench camera and sky, engine "kernel". Two warm-up
+    frames, then eight timed render() calls (each synchronised, the u8
+    readback included), K1/K2 launch counts set to 0 just before and read
+    just after (2 + 2 per frame). The three passes unfused, each between
+    CUDA events (the device timeline's span, host gaps included). One frame
+    under torch.profiler (device busy share), the peak memory. One frame's
+    four queries recorded: each launched on all its rays and that launch's
+    result held to the plain version on its first and its last QUERY_WINDOW
+    rays (t, tri, nodes, occlusion exact; the rays of each window whose
+    result the pass drops counted), each timed at full width; K1's and
+    K2's bounds on the primaries' and the G-buffer shadow rays' first
+    windows from their counted work. Then the parking A/B (_parking_ab)."""
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.ops.counted import intersect_closest_counted, walk_operations
+    from rayfinder_tpu_torch.ops.walk import (
+        intersect_any_kernel, intersect_any_reference,
+        intersect_closest_kernel, intersect_closest_reference,
+    )
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.deferred import (
+        DeferredRenderer, gbuffer_pass, lighting_pass, resolve_pass,
+    )
+    from rayfinder_tpu_torch.render.traverse import count_work, intersect_any
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    w, h = DEFERRED_HD["width"], DEFERRED_HD["height"]
+    cam = create_camera(*CAMERA, w / h)
+    sky = sky_state_from_ui(*SKY)
+    r = DeferredRenderer(scene, w, h)
+    for _ in range(DEFERRED_HD["warm_frames"]):
+        r.render(cam, sky, 0.25)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    frame_s = []
+    for _ in range(DEFERRED_HD["timed_frames"]):
+        t0 = time.perf_counter()
+        img = r.render(cam, sky, 0.25)
+        frame_s.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = DEFERRED_HD["timed_frames"]
+    ms = 1e3 * sum(frame_s) / n
+    print(f"deferred {w}x{h} on {scene.num_triangles} triangles: {ms:.3f} ms per frame "
+          f"(synchronised, u8 readback "
+          f"included; frames {[round(1e3 * s, 3) for s in frame_s]} ms), rolling 'frame' "
+          f"{r.perf_stats()['frame']:.3f} ms, K1/K2 launches over {n} frames {launches}, peak "
+          f"memory {peak / 2**20:.1f} MiB [{card}]", flush=True)
+    _require(launches == {"K1": 2 * n, "K2": 2 * n},
+             f"the 1080p deferred frames launched {launches}, expected {2 * n} each")
+    _require(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.max() > 0.0
+             and bool(torch.isfinite(r.accum).all()), "the 1080p deferred frame is not right")
+
+    # The passes unfused, between CUDA events.
+    spans = {"gbuffer": [], "lighting": [], "resolve": []}
+    for _ in range(5):
+        fc = r.frame_count
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        gbuf = gbuffer_pass(scene, cam, fc, width=w, height=h)
+        ev[1].record()
+        sample = lighting_pass(scene, r._device_sky(sky), gbuf, fc, width=w, height=h,
+                               tile=r._tile)
+        ev[2].record()
+        r.accum, _ = resolve_pass(sample, r.accum, fc, 0.25)
+        ev[3].record()
+        torch.cuda.synchronize()
+        r.frame_count += 1
+        for k, name in enumerate(spans):
+            spans[name].append(ev[k].elapsed_time(ev[k + 1]))
+    pass_ms = {k: sum(v) / len(v) for k, v in spans.items()}
+    print("deferred 1080p passes unfused (CUDA events, mean of 5): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in pass_ms.items()) + f" [{card}]", flush=True)
+
+    profile = _device_busy("deferred 1080p frame", lambda: r.render(cam, sky, 0.25), card)
+    # The host's share of render(): the u8 frame's copy to the host, and its
+    # conversion to the f32 image render() returns.
+    img8 = torch.zeros(h * w, 3, dtype=torch.uint8, device=dev)
+    _, copy_s = _timed(lambda: [img8.cpu() for _ in range(5)])
+    u8 = img8.cpu().numpy().reshape(h, w, 3)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        u8.astype(np.float32) / np.float32(255.0)
+    convert_ms = 1e3 * (time.perf_counter() - t0) / 5
+    print(f"deferred 1080p readback: the u8 frame's copy to the host {1e3 * copy_s / 5:.3f} ms, "
+          f"its conversion to f32 on the host {convert_ms:.3f} ms [{card}]", flush=True)
+
+    # One frame's queries, each launched at full width: the launch's result
+    # held to plain on a window at each end of the rays (the image's top and
+    # bottom rows), and timed. Per window, the rays whose result the pass
+    # drops (a miss pixel's three later queries, a missed bounce's sun
+    # sample: live sets from the primaries' and the bounce's hits) and the
+    # non-finite rays among them are counted.
+    _, calls = _record_queries(lambda: r.render(cam, sky, 0.25))
+    _require([c[0] for c in calls] == ["closest", "any", "closest", "any"],
+             f"a deferred frame made the queries {[c[0] for c in calls]}")
+    names = ("primaries", "gbuffer shadow rays", "bounce rays", "bounce shadow rays")
+    rays = w * h
+    windows = {"head": slice(0, QUERY_WINDOW), "tail": slice(rays - QUERY_WINDOW, rays)}
+    query_ms, checks, dropped, nonfinite = {}, {}, {}, {}
+    hits = []  # the G-buffer's hit, then hit & the bounce's hit
+    for k, (name, (kind, o, d, t_max)) in enumerate(zip(names, calls)):
+        _require(o.shape[0] == rays, f"the 1080p frame's {name} hold {o.shape[0]} rays")
+        live = None if k == 0 else hits[0] if k < 3 else hits[1]
+        if kind == "closest":
+            full = intersect_closest_kernel(scene, o, d, t_max)
+            plain = intersect_closest_reference
+            query_ms[name] = _time_ms(lambda: intersect_closest_kernel(scene, o, d, t_max), 5)
+            hits.append(full[0] if live is None else live & full[0])
+        else:
+            full = (intersect_any_kernel(scene, o, d, t_max),)
+            plain = lambda *a: (intersect_any_reference(*a),)  # noqa: E731
+            query_ms[name] = _time_ms(lambda: intersect_any_kernel(scene, o, d, t_max), 5)
+        finite = torch.isfinite(o).all(1) & torch.isfinite(d).all(1)
+        for side, win in windows.items():
+            want = plain(scene, o[win].contiguous(), d[win].contiguous(), t_max[win].contiguous())
+            same = all(bool(torch.equal(a[win], b)) for a, b in zip(full, want))
+            checks[f"{name} {side}"] = same
+            dropped[f"{name} {side}"] = 0 if live is None else int((~live[win]).sum())
+            nonfinite[f"{name} {side}"] = int((~finite[win]).sum())
+            _require(same, f"K1/K2 at {rays} rays differ from plain on the 1080p deferred "
+                     f"frame's {name}, {side} window")
+    print(f"K1/K2 launched on the {rays} rays of each of the 1080p frame's queries == plain on "
+          f"the first and the last {QUERY_WINDOW}: {checks}; rays per window whose result the "
+          f"pass drops {dropped}, non-finite rays {nonfinite}; per launch: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in query_ms.items())
+          + f"; K1 + K2 per frame {sum(query_ms.values()):.4f} ms [{card}]", flush=True)
+
+    parking = _parking_ab(scene, cam, sky, card)
+
+    # Bounds and times on the windows of the primaries (K1) and the
+    # G-buffer's shadow rays (K2).
+    win = windows["head"]
+    _, o, d, t_max = calls[0]
+    ow, dw, tw = o[win].contiguous(), d[win].contiguous(), t_max[win].contiguous()
+    c = intersect_closest_counted(scene, ow, dw, tw)[3].sum(0, dtype=torch.int64).tolist()
+    k1_bound = _bound(walk_operations(c[0], c[2]), _nbytes(ow, dw, tw) + 12 * QUERY_WINDOW
+                      + _walk_bytes(scene), issue=_walk_issue(c[0], c[2]),
+                      loaded=_walk_loaded(QUERY_WINDOW, c[0], c[2]))
+    k1_ms = _time_ms(lambda: intersect_closest_kernel(scene, ow, dw, tw), 20)
+    _, so, sd, st = calls[1]
+    so, sd, st = so[win].contiguous(), sd[win].contiguous(), st[win].contiguous()
+    with count_work() as work:
+        intersect_any(scene, so, sd, st)
+    k2_bound = _bound(_walk_ops(work), _nbytes(so, sd, st) + QUERY_WINDOW + _walk_bytes(scene),
+                      **_work_second(work))
+    k2_ms = _time_ms(lambda: intersect_any_kernel(scene, so, sd, st), 20)
+    print(f"  on {QUERY_WINDOW}-ray windows: K1 on the primaries {k1_ms:.4f} ms (bound "
+          f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}; nodes/ray "
+          f"{c[0] / QUERY_WINDOW:.2f}), K2 on the G-buffer shadow rays {k2_ms:.4f} ms (bound "
+          f"{k2_bound['bound_ms']:.4f} ms, {k2_bound['bound_by']}) [{card}]", flush=True)
+    return {"ms_per_frame": ms, "frame_ms": [1e3 * s for s in frame_s], "launches": launches,
+            "peak_bytes": peak, "pass_ms": pass_ms, "profile": profile, "query_ms": query_ms,
+            "readback_ms": 1e3 * copy_s / 5, "convert_ms": convert_ms,
+            "window_checks": checks, "window_dropped": dropped, "window_nonfinite": nonfinite,
+            "parking_ab": parking,
+            "k1_window_ms": k1_ms, "k2_window_ms": k2_ms,
+            "k1_window_bound_ms": k1_bound["bound_ms"], "k2_window_bound_ms": k2_bound["bound_ms"],
+            "card": card}
+
+
+def _viewer_check(scene, dev, card: str, outdir: pathlib.Path) -> dict:
+    """Phase 10 (c): a scripted ViewerSession on the slice's scene at 640x480
+    (default engine, the bench camera): pt frames with the Mrays/s readout
+    from the exact counts, a deferred frame, a move that resets both
+    renderers, a focus pick through one K1 launch, four deferred frames (8 K1
+    and 8 K2 launches) and a debug frame; every PNG written."""
+    import numpy as np
+
+    from rayfinder_tpu_torch.render.renderer import Sky
+    from rayfinder_tpu_torch.tools.viewer import ViewerSession
+
+    vw, vh = VIEWER_SIZE
+    s = ViewerSession(scene, outdir / "viewer_pt.png", width=vw, height=vh, spp=16, bounces=2,
+                      sky=Sky(*SKY), exposure=0.25)
+    s.controller.position = np.asarray(CAMERA[0], np.float32)
+
+    def handle(line: str) -> None:
+        _tagged(card, lambda: s.handle(line))
+
+    handle("lookat 12 2 0")
+    t0 = time.perf_counter()
+    handle("frames 8")
+    _require(s.renderer.accumulated_sample_count == 8 and s.renderer.total_rays > 0
+             and "Mrays/s" in s.status(), "the viewer's pt frames or readout are wrong")
+    handle("renderer deferred")
+    s.out_path = outdir / "viewer_deferred.png"
+    handle("frames 1")
+    handle("w 0.5")
+    _require(s.renderer.accumulated_sample_count == 0 and s._deferred.frame_count == 0,
+             "a move did not reset both renderers")
+    focus = s.controller.focus_distance
+    _zero_launches()
+    handle(f"pick {vw // 2} {vh // 2}")
+    _require(s.controller.focus_distance != focus and _launch_counts()["K1"] == 1,
+             "the pick did not set the focus through one K1 launch")
+    _zero_launches()
+    handle("frames 4")
+    _require(s._deferred.frame_count == 4 and _launch_counts() == {"K1": 8, "K2": 8},
+             f"four deferred frames: frame count {s._deferred.frame_count}, {_launch_counts()}")
+    handle("renderer debug")
+    s.out_path = outdir / "viewer_debug.png"
+    handle("frames 1")
+    handle("renderer pt")
+    s.out_path = outdir / "viewer_pt2.png"
+    handle("frames 8")
+    secs = time.perf_counter() - t0
+    pngs = sorted(p.name for p in outdir.glob("viewer_*.png"))
+    print(f"viewer script on {scene.num_triangles} triangles at {vw}x{vh}: {secs:.2f} s, focus "
+          f"{focus:.3f} -> "
+          f"{s.controller.focus_distance:.4f}, PNGs {pngs}; last readout {s.status()} [{card}]",
+          flush=True)
+    _require(len(pngs) == 4, f"the viewer wrote {pngs}")
+    return {"seconds": secs, "focus": s.controller.focus_distance,
+            "total_rays": s.renderer.total_rays, "status": s.status()}
+
+
+def _heat_and_render(scene_pt, pt_path, dev, card: str, outdir: pathlib.Path) -> dict:
+    """Phase 10 (d): the BVH heat map at 1280x720 of the slice's .pt
+    (bvh_visualizer.visualize, which loads it), K1's node counts equal to
+    the plain walk's on the first and the last QUERY_WINDOW rays; then tools/render.py
+    on procedural:courtyard:26 at 640x480, 16 spp (default engine, the
+    card)."""
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.ops.walk import intersect_closest_reference
+    from rayfinder_tpu_torch.render.camera import generate_camera_ray
+    from rayfinder_tpu_torch.tools import bvh_visualizer, render
+    from rayfinder_tpu_torch.utils.image import read_png, write_png
+
+    w, h = HEAT_SIZE
+    _zero_launches()
+    img, secs = _timed(lambda: bvh_visualizer.visualize(pt_path, w, h, device=dev))
+    launches = _launch_counts()
+    write_png(outdir / "bvh_heatmap.png", img)
+    heat, visits = bvh_visualizer.heat_map(scene_pt, w, h)
+    u, v = bvh_visualizer.pixel_uv(w, h)
+    camera = bvh_visualizer.heat_camera(scene_pt, w, h)
+    same = {}
+    windows = {"head": slice(0, QUERY_WINDOW), "tail": slice(w * h - QUERY_WINDOW, w * h)}
+    for side, win in windows.items():
+        o, d = generate_camera_ray(camera, torch.from_numpy(u[win]).to(dev),
+                                   torch.from_numpy(v[win]).to(dev))
+        t_max = o.new_full((o.shape[0],), float(np.finfo(np.float32).max))
+        plain = intersect_closest_reference(scene_pt, o, d, t_max)[3]
+        same[side] = bool(torch.equal(visits[win], plain))
+    print(f"BVH heat map {w}x{h} of {pt_path.name}: {secs:.3f} s (the .pt load included), K1 "
+          f"launches {launches}, mean nodes/ray {float(visits.float().mean()):.2f}; K1's node "
+          f"counts at {w * h} rays == plain walk's on the first and the last {QUERY_WINDOW}: "
+          f"{same} [{card}]", flush=True)
+    _require(all(same.values()) and np.array_equal(img, heat) and launches["K1"] == 1,
+             "the heat map's node counts differ from the plain walk's")
+    out = outdir / "render_tool.png"
+    (rw, rh), spp = RENDER_TOOL["size"], RENDER_TOOL["spp"]
+    argv = [RENDER_TOOL["scene"], "-o", str(out), "--width", str(rw), "--height", str(rh),
+            "--spp", str(spp)]
+    _, render_s = _timed(lambda: _tagged(card, lambda: render.main(argv)))
+    rendered = read_png(out)
+    print(f"tools/render.py {RENDER_TOOL['scene']} {rw}x{rh} {spp} spp: {render_s:.2f} s (scene "
+          f"build included), PNG {rendered.shape}, mean {float(rendered.mean()):.1f} [{card}]",
+          flush=True)
+    _require(rendered.shape == (rh, rw, 3) and 0 < rendered.mean() < 255,
+             "the render tool's image is not right")
+    return {"heat_seconds": secs, "heat_launches": launches, "render_seconds": render_s}
 
 
 def main(argv=None) -> int:
@@ -1822,6 +2311,32 @@ def main(argv=None) -> int:
     # --- 8. the probes: K7 at the TPU probe's shapes, K8 ---------------------
     k8_entry, probes = _probes(dev, card, scene_pt)
 
+    deferred_numbers = {}
+    if full:
+        # --- 10. the deferred renderer and the interactive layer -----------
+        # Its main path is the 1080p deferred frame on the slice's scene: two
+        # K1 and two K2 launches per frame, counted over the timed frames.
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            outdir = pathlib.Path(tmp)
+            deferred_numbers = {
+                "small": _deferred_small({"untextured": scene8, "textured": scene8t}, dev, card),
+                "full_hd": _deferred_full_hd(scene26, dev, card),
+                "viewer": _viewer_check(scene26, dev, card, outdir),
+                "tools": _heat_and_render(scene_pt, pathlib.Path(efficiency["pt_path"]), dev,
+                                          card, outdir),
+            }
+        deferred_numbers["seconds"] = time.perf_counter() - t0
+        print(f"phase 10: {deferred_numbers['seconds']:.1f} s", flush=True)
+        hd = deferred_numbers["full_hd"]
+        for entry, key in zip(walk_entries, ("K1", "K2")):
+            path = f"phase 10 deferred 1920x1080, {DEFERRED_HD['timed_frames']} timed frames"
+            entry["launches_by_path"][path] = hd["launches"][key]
+            entry["launches"] = hd["launches"][key]
+            entry["path"] = path
+            entry["ms_deferred_window"] = hd[f"{key.lower()}_window_ms"]
+            entry["bound_ms_deferred_window"] = hd[f"{key.lower()}_window_bound_ms"]
+
     kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s from the start of the build",
           flush=True)
@@ -1842,6 +2357,7 @@ def main(argv=None) -> int:
         "slice": slice_numbers,
         "textured_slice": textured_numbers,
         "scan": scan_numbers,
+        "deferred": deferred_numbers,
         "l2_bytes_per_s": L2_RATE["bytes_per_s"],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

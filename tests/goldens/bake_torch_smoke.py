@@ -9,7 +9,16 @@ tests/goldens/courtyard_textured_128x96_8spp.npz. The same configurations
 are rendered through the port by chip_smoke.py (phases 3 and 3b) and by
 tests/test_torch_golden.py.
 
-    JAX_PLATFORMS=cpu python tests/goldens/bake_torch_smoke.py
+It also renders three frames of the deferred renderer (DeferredRenderer,
+engine="reference") on both scenes at 128x96 with the same camera, sky and
+exposure, and writes tests/goldens/courtyard_deferred_128x96_f3.npz: per
+scene the TAA accumulator after the third frame, the third frame's u8
+display and the G-buffer debug triptych at frame count 3
+(chip_smoke.py phase 10, tests/test_torch_deferred.py).
+
+    JAX_PLATFORMS=cpu python tests/goldens/bake_torch_smoke.py [--deferred]
+
+(--deferred: the deferred golden only.)
 """
 
 import pathlib
@@ -63,6 +72,35 @@ def bake(textured: bool) -> None:
     print(f"wrote {out} rays={np.asarray(rays).tolist()}")
 
 
-if __name__ == "__main__":
+DEFERRED_FRAMES = 3
+DEFERRED_GOLDEN = GOLDENS / "courtyard_deferred_128x96_f3.npz"
+
+
+def bake_deferred() -> None:
+    from rayfinder_tpu.render.camera import create_camera
+    from rayfinder_tpu.render.deferred import DeferredRenderer
+    from rayfinder_tpu.render.scene import build_device_scene
+    from rayfinder_tpu.scene.procedural import courtyard_scene
+    from rayfinder_tpu.sky.model import sky_state_from_ui
+
+    out = {}
     for textured in (False, True):
-        bake(textured)
+        kind = "textured" if textured else "untextured"
+        flat, textures = courtyard_scene(SUBDIV, textured=textured)
+        scene = build_device_scene(flat, textures=textures)
+        camera = create_camera(*CAMERA, WIDTH / HEIGHT)
+        dr = DeferredRenderer(scene, WIDTH, HEIGHT, engine="reference")
+        for _ in range(DEFERRED_FRAMES):
+            img = dr.render(camera, sky_state_from_ui(*SKY), EXPOSURE)
+        out[f"{kind}_accum"] = np.asarray(dr.accum).astype(np.float32)
+        out[f"{kind}_display"] = np.round(img * 255.0).astype(np.uint8)
+        out[f"{kind}_debug"] = dr.render_debug(camera).astype(np.float32)
+    np.savez_compressed(DEFERRED_GOLDEN, **out)
+    print(f"wrote {DEFERRED_GOLDEN}")
+
+
+if __name__ == "__main__":
+    if "--deferred" not in sys.argv[1:]:
+        for textured in (False, True):
+            bake(textured)
+    bake_deferred()

@@ -831,3 +831,64 @@ def test_unfused_loop_and_tiled_scan_form_match_the_default_route(dev, textured)
     for name, img in images.items():
         assert np.sqrt(np.mean((img - images["kernel"]) ** 2)) < 1e-3, name
         assert np.sqrt(np.mean((img - golden["image"]) ** 2)) < 5e-3, name
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_deferred_frames_on_the_kernels_equal_plain(dev, textured):
+    """Three DeferredRenderer frames at 128x96 on K1/K2 ("kernel", two K1 and
+    two K2 launches per frame) and on their plain versions: the TAA
+    accumulator bit for bit, the displays equal, within RMSE 5e-3 of the
+    JAX-baked golden; the debug triptych equal too."""
+    import sys
+
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.deferred import DeferredRenderer
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    sys.path.insert(0, str(GOLDENS))
+    import bake_torch_smoke as cfg
+
+    kind = "textured" if textured else "untextured"
+    flat, textures = courtyard_scene(cfg.SUBDIV, textured=textured)
+    scene = build_device_scene(flat, textures=textures, device=dev)
+    w, h = cfg.WIDTH, cfg.HEIGHT
+    cam = create_camera(*cfg.CAMERA, w / h)
+    renderers = {e: DeferredRenderer(scene, w, h, engine=e) for e in ("kernel", "plain")}
+    images = {}
+    for engine, r in renderers.items():
+        before = (walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches)
+        for _ in range(cfg.DEFERRED_FRAMES):
+            images[engine] = r.render(cam, sky_state_from_ui(*cfg.SKY), cfg.EXPOSURE)
+        after = (walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches)
+        per_frame = 2 * cfg.DEFERRED_FRAMES if engine == "kernel" else 0
+        assert (after[0] - before[0], after[1] - before[1]) == (per_frame, per_frame)
+    assert renderers["kernel"].accum.device.type == "cuda"
+    assert torch.equal(renderers["kernel"].accum, renderers["plain"].accum)
+    np.testing.assert_array_equal(images["kernel"], images["plain"])
+    golden = np.load(cfg.DEFERRED_GOLDEN)
+    assert np.sqrt(np.mean((images["kernel"] - golden[f"{kind}_display"] / 255.0) ** 2)) < 5e-3
+    with np.errstate(invalid="ignore"):
+        np.testing.assert_array_equal(renderers["kernel"].render_debug(cam),
+                                      renderers["plain"].render_debug(cam))
+
+
+def test_focus_pick_goes_through_k1(dev, scene8):
+    """The viewer's focus pick on the card: one K1 launch, the plain walk's
+    focus."""
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render.fly_camera import FlyCameraController, pick_focus_distance
+
+    def controller():
+        c = FlyCameraController((64, 48))
+        c.position = np.asarray([-16.0, 5.0, 0.0], np.float32)
+        c.look_at([12.0, 2.0, 0.0])
+        return c
+
+    c = controller()
+    before = walk.intersect_closest_kernel.launches
+    focus = pick_focus_distance(scene8, c, 32.0, 24.0)
+    assert walk.intersect_closest_kernel.launches == before + 1
+    cpu = controller()
+    assert focus is not None and focus == pick_focus_distance(scene8.to("cpu"), cpu, 32.0, 24.0)

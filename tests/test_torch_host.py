@@ -116,7 +116,7 @@ def test_plain_png_decodes_without_pillow():
     _equal(tex.pixels, want.reshape(-1), "pixels")
 
 
-@pytest.mark.parametrize("name", ["blue_noise.npz", "sky_tables.npz"])
+@pytest.mark.parametrize("name", ["blue_noise.npz", "sky_tables.npz", "solar_spectral.npz"])
 def test_copied_assets_equal_the_jax_package_files(name):
     got = np.load(ROOT / "rayfinder_tpu_torch" / "assets" / name)
     want = np.load(ROOT / "rayfinder_tpu" / "assets" / name)

@@ -31,7 +31,10 @@ def test_every_module_imports_without_jax():
     mods = list(_modules()) + ["chip_smoke"]
     for m in ("ops.regen", "ops.regen_shaded", "ops.regen_segs", "render.shade", "ops.counted",
               "ops.slab", "ops.skyround", "prof.diag_iters", "scene.procedural", "io.ptformat",
-              "render.renderer", "tools.sky_demo", "utils.math", "utils.image"):
+              "render.renderer", "tools.sky_demo", "utils.math", "utils.image",
+              "render.deferred", "render.fly_camera", "utils.profiling", "sky.solar",
+              "tools.viewer", "tools.render", "tools.turntable", "tools.bvh_visualizer",
+              "tools.pt_format_tool", "tools.textractor", "tools.sun_integrator"):
         assert f"rayfinder_tpu_torch.{m}" in mods
     code = (
         "import os, sys\n"
@@ -50,6 +53,8 @@ def test_every_module_imports_without_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from rayfinder_tpu_torch.render.rng import blue_noise_tile\n"
+        "from rayfinder_tpu_torch.sky.solar import solar_disk_radiance\n"
+        "solar_disk_radiance(2.0, 0.001, 0.5, 560.0)\n"
         "from rayfinder_tpu_torch.render.scene import build_device_scene\n"
         "from rayfinder_tpu_torch.scene.procedural import courtyard_scene\n"
         "from rayfinder_tpu_torch.sky.model import sky_state_from_ui\n"
