@@ -101,7 +101,26 @@ kernels from csrc/, then:
    focus pick through K1, deferred and debug frames, every PNG written);
    (d) the BVH heat map of the slice's .pt at 1280x720, K1's node counts
    equal to the plain walk's on its first and last 262,144 rays, and
-   tools/render.py on procedural:courtyard:26 at 640x480, 16 spp.
+   tools/render.py on procedural:courtyard:26 at 640x480, 16 spp;
+11. (run after 10) the port's last modules: (a) the wavefront engine
+   (render/wavefront.py, torch code) against K1/K2 on phase 2's 262,144
+   rays, t/tri/occlusion equal but on rays each side's slab test prunes by
+   an ulp or equal-t hits met in another order (counted, at most 0.05%),
+   with its escalations and wall time; (b) the split route sorted by the
+   "dir" key every iteration against unsorted on the slice: bit for bit
+   from a zero accumulator, 11,611,591 / 8,839,510 rays on samples 16-31,
+   then three dispatches of each in turns (wall) and three under
+   torch.profiler (K3's device time); (c) render_image_sharded_regen on a
+   1x1 nccl mesh at 1920x1080, 16 spp on the slice's scene, bit for bit
+   render_image, and its last K4 call (2,073,600 lanes) recorded and held
+   to K4's plain version on its first and last 262,144 lanes; (d) 2x1, 1x2
+   and 2x2 gloo meshes as 2-4 processes sharing the card
+   (torch.multiprocessing), courtyard_scene(8) at 128x96, against the 1x1
+   images (RMSE < 1e-6), one K4 launch per shard, and on 2x2 the scan form
+   (render_image_sharded) with "kernel" (K1/K2 per rank counted) and
+   "wavefront", the two within RMSE 1e-3; (e) two nccl ranks on the card,
+   refused, and
+   tools/render.py --mesh 2x1 --backend gloo under torch.distributed.run.
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
@@ -190,6 +209,12 @@ L2_RATE = {"bytes_per_s": None}
 NODE_PLANES = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_offset", "bvh_second_child",
                "bvh_tri_count", "bvh_split_axis")
 SHADE_TABLES = ("tri_attrs", "tex_desc", "texels")
+# K4's lane outputs, in order (its last output is the rays it traced).
+K4_OUTPUTS = ("sample", "bounce", "flag", "origin", "direction", "thr", "srad", "lrad",
+              "shadow_o", "shadow_d", "contrib")
+# The cluster tables of the wavefront engine and the sorted loop's key.
+CLUSTER_TABLES = ("cluster_tris", "cluster_min", "cluster_max", "cluster_tri_map",
+                  "cluster_start")
 # The packed walk of K1-K5 reads one 64-byte record per interior node, and
 # the root's rows of four of the planes.
 RECORD_BYTES = 64
@@ -1107,8 +1132,7 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
 
     # K4: the compacted lanes of the in-kernel route's first shaded phase,
     # with that phase's per-tile floor.
-    k4_names = ("sample", "bounce", "flag", "origin", "direction", "thr", "srad", "lrad",
-                "shadow_o", "shadow_d", "contrib")
+    k4_names = K4_OUTPUTS
     args, k4_lanes, floor, st = _k4_args(scene26, camera, sky, tile, dev)
     k_out = trace_regen_shaded(*args)
     p_out, k4_plain, work = _plain_work(lambda: trace_regen_shaded_reference(*args))
@@ -2136,6 +2160,481 @@ def _heat_and_render(scene_pt, pt_path, dev, card: str, outdir: pathlib.Path) ->
     return {"heat_seconds": secs, "heat_launches": launches, "render_seconds": render_s}
 
 
+# Phase 11: the wavefront engine, the sorted fused loop and the sharded
+# renders over torch.distributed.
+# The gloo meshes' image (courtyard_scene(8)), spp of their regen render and
+# of the 2x2 scan form; the 1x1 nccl render at full width; the A/B's rounds.
+MESH_IMAGE = dict(width=128, height=96, num_bounces=4)
+MESH_REGEN_SPP = 16
+MESH_SCAN_SPP = 4
+GLOO_MESHES = ((2, 1), (1, 2), (2, 2))
+SHARDED_HD = dict(width=1920, height=1080, spp=16, num_bounces=4)
+AB_ROUNDS = 3
+# Rays on which the wavefront engine and K1/K2 may differ, each side's slab
+# test pruning by an ulp a box the other enters, or equal-t hits met in
+# another order (_wavefront_check): at most this share of phase 2's rays.
+WAVEFRONT_EXCEPTIONS = 5e-4
+# The 2x2 scan form's image on K1/K2 against the same on the wavefront
+# engine: phase 9's budget for one set of samples through two walks.
+SCAN_ENGINES_RMSE = 1e-3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wavefront_check(scene, camera, dev, card: str) -> dict:
+    """Phase 11 (a): the wavefront engine (render/wavefront.py, torch code)
+    against K1/K2 on phase 2's 262,144 camera and random rays over the
+    slice's scene. t, tri and occlusion must be equal but on three kinds of
+    ray, each counted and printed: a hit nearer by at most a relative 1e-6
+    (the stack walk's slab test pruned that triangle's leaf box by an ulp:
+    ROADMAP.md section 3, flat_courtyard8 ray 6); a hit farther by at most a
+    relative 1e-6 where the cluster box that holds K1's triangle is entered
+    no nearer than the wavefront's hit (its entry rounds an ulp above its
+    own triangle's t, so the walk prunes it); another triangle at an equal t
+    (equal-t hits met in another order). Together at most
+    WAVEFRONT_EXCEPTIONS of the rays. Also prints the escalations and the
+    wavefront's wall time."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.pathtracer import triangle_clusters
+    from rayfinder_tpu_torch.render.wavefront import (
+        _slab_entry, intersect_any_wavefront, intersect_closest_wavefront,
+    )
+
+    o, d = _rays(camera, 131072, 131072, seed=0, dev=dev)
+    n = o.shape[0]
+    t_dev = torch.full((n,), T_MAX, device=dev)
+    _, kt, ktri, _ = intersect_closest_kernel(scene, o, d, t_dev)
+    kocc = intersect_any_kernel(scene, o, d, t_dev)
+    (_, wt, wtri, esc_closest), closest_s = _timed(
+        lambda: intersect_closest_wavefront(scene, o, d, T_MAX))
+    (wocc, esc_any), any_s = _timed(lambda: intersect_any_wavefront(scene, o, d, T_MAX))
+    closer = wt < kt
+    tie = (wt == kt) & (wtri != ktri)
+    farther = torch.nonzero(wt > kt)[:, 0]
+    cluster = triangle_clusters(scene)[ktri[farther].long()].long()
+    inv = 1.0 / d[farther]
+    box_hit, box_entry = _slab_entry(o[farther], inv, inv < 0.0, scene.cluster_min[cluster],
+                                     scene.cluster_max[cluster], t_dev[farther])
+    pruned = ~box_hit | (box_entry >= wt[farther])
+    occ_more, occ_less = wocc & ~kocc, kocc & ~wocc
+    rel = float(((kt - wt) / kt)[closer].max()) if bool(closer.any()) else 0.0
+    rel_far = float(((wt - kt) / kt)[farther].max()) if farther.numel() else 0.0
+    out = dict(rays=n, closer=int(closer.sum()), equal_t_other_tri=int(tie.sum()),
+               farther=int(farther.numel()), farther_cluster_pruned=int(pruned.sum()),
+               max_rel_farther=rel_far,
+               occluded_only_by_wavefront=int(occ_more.sum()),
+               occluded_only_by_k2=int(occ_less.sum()), max_rel_closer=rel,
+               escalated_closest=int(esc_closest), escalated_any=int(esc_any),
+               closest_s=closest_s, any_s=any_s, card=card)
+    print(f"wavefront vs K1/K2 on {n} rays: t/tri/occ equal but for {out['closer']} rays "
+          f"nearer by <= {rel:.2e} (relative; first {torch.nonzero(closer)[:8, 0].tolist()}), "
+          f"{out['farther']} farther by <= {rel_far:.2e} (K1's triangle's cluster entered no "
+          f"nearer than the wavefront's hit on {out['farther_cluster_pruned']}; first "
+          f"{farther[:8].tolist()}), "
+          f"{out['equal_t_other_tri']} with another triangle at an equal t; occlusion "
+          f"{out['occluded_only_by_wavefront']} only by the wavefront, "
+          f"{out['occluded_only_by_k2']} only by K2; escalated {int(esc_closest)} (closest), "
+          f"{int(esc_any)} (any); wavefront {closest_s:.3f} s (closest), {any_s:.3f} s (any) "
+          f"[{card}]", flush=True)
+    _require(out["farther_cluster_pruned"] == out["farther"],
+             "the wavefront engine missed a hit in a cluster entered before its own")
+    _require(max(rel, rel_far) <= 1e-6,
+             f"the wavefront engine's hits differ by {max(rel, rel_far):.2e}")
+    exceptions = sum(out[k] for k in ("closer", "farther", "equal_t_other_tri",
+                                      "occluded_only_by_wavefront", "occluded_only_by_k2"))
+    _require(exceptions <= WAVEFRONT_EXCEPTIONS * n,
+             f"the wavefront engine differs from K1/K2 on {exceptions} of {n} rays")
+    return out
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _k3_device_ms(fn) -> tuple[float, float, float]:
+    """(K3's device time, all kernels' device time, wall) in ms of one fn()
+    under torch.profiler, from its device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(fn)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    k3 = sum(e.device_time_total for e in events if "trace_regen_kernel" in e.key)
+    return k3 * 1e-3, sum(e.device_time_total for e in events) * 1e-3, wall * 1e3
+
+
+def _sorted_ab(scene, sky, camera, tile, dev, card: str) -> dict:
+    """Phase 11 (b): the split route sorted (the "dir" key every iteration)
+    against unsorted on the slice. From a zero accumulator (samples 0-15)
+    the two must be equal bit for bit with equal ray counts; from there,
+    samples 16-31 must count SLICE_RAYS on both. Then the A/B: AB_ROUNDS
+    dispatches of samples 16-31 each, in turns, for the wall time, and as
+    many under torch.profiler for K3's device time per dispatch. Sorting
+    stays the default on big scenes only if both medians favour it."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+
+    w, h, nf = SLICE["width"], SLICE["height"], SLICE["num_frames"]
+    kw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=SLICE["spp"],
+              num_frames=nf, engine="kernel", count_rays=True, inkernel=False)
+    zeros = torch.zeros(w * h, 3, device=dev)
+
+    def dispatch(base, accum, sort):
+        return accumulate_samples_regen(scene, sky, camera, tile, base, accum, sort=sort, **kw)
+
+    first, launches, rays = {}, {}, {}
+    for sort in (False, True):
+        first[sort], _ = dispatch(0, zeros, sort)
+    _require(torch.equal(first[False], first[True]),
+             "sorted and unsorted differ from a zero accumulator")
+    second = {}
+    for sort in (False, True):
+        trace_regen.launches = 0
+        (second[sort], r), secs = _timed(lambda: dispatch(nf, first[False], sort))
+        launches[sort], rays[sort] = trace_regen.launches, r.tolist()
+        _require(rays[sort] == SLICE_RAYS, f"sort={sort}: {rays[sort]} rays, expected {SLICE_RAYS}")
+    diff = float((second[True] - second[False]).abs().max())
+    print(f"split route on the slice, samples 0-15 from zero: sorted == unsorted bit for bit; "
+          f"samples 16-31: rays {rays[True]} both, K3 launches sorted {launches[True]} / unsorted "
+          f"{launches[False]}, max |sorted - unsorted| {diff:.3e} [{card}]", flush=True)
+    _require(bool(torch.allclose(second[True], second[False], rtol=1e-5, atol=1e-5)),
+             "sorted and unsorted differ from a warm accumulator")
+    wall = {False: [], True: []}
+    for _ in range(AB_ROUNDS):
+        for sort in (False, True):
+            _, secs = _timed(lambda: dispatch(nf, first[False], sort))
+            wall[sort].append(secs * 1e3)
+    k3 = {False: [], True: []}
+    busy = {False: [], True: []}
+    for _ in range(AB_ROUNDS):
+        for sort in (False, True):
+            k3_ms, device_ms, wall_ms = _k3_device_ms(lambda: dispatch(nf, first[False], sort))
+            k3[sort].append(k3_ms)
+            busy[sort].append((device_ms, wall_ms))
+    out = dict(launches={"sorted": launches[True], "unsorted": launches[False]},
+               rays=rays[True], max_abs_diff_warm=diff,
+               wall_ms={"sorted": wall[True], "unsorted": wall[False]},
+               k3_ms={"sorted": k3[True], "unsorted": k3[False]},
+               profiled_device_wall_ms={"sorted": busy[True], "unsorted": busy[False]},
+               card=card)
+    favours = dict(wall=_median(wall[True]) < _median(wall[False]),
+                   k3=_median(k3[True]) < _median(k3[False]))
+    out["sort_favoured"] = favours
+    for name, xs in (("wall ms", wall), ("K3 device ms (profiler)", k3)):
+        print(f"A/B in turns, {name} per dispatch of samples 16-31: unsorted "
+              f"{', '.join(f'{x:.3f}' for x in xs[False])} (median {_median(xs[False]):.3f}); "
+              f"sorted {', '.join(f'{x:.3f}' for x in xs[True])} (median "
+              f"{_median(xs[True]):.3f}) [{card}]", flush=True)
+    print(f"profiled dispatches [device ms, wall ms]: unsorted {busy[False]}, sorted "
+          f"{busy[True]}; the medians favour sorting on wall: {favours['wall']}, on K3: "
+          f"{favours['k3']} (the split route sorts by default only if both do; it does "
+          f"not) [{card}]", flush=True)
+    return out
+
+
+def _mesh_worker(rank: int, world: int, port: int, samples: int, outdir: str) -> None:
+    """One rank of a gloo mesh on the card (torch.multiprocessing.spawn):
+    courtyard_scene(8) at MESH_IMAGE through render_image_sharded_regen
+    (the default route per shard; its K4 launches counted), and on a 2x2
+    mesh also render_image_sharded with "kernel" (K1/K2 launches counted)
+    and "wavefront". Writes rank{rank}.npz into outdir."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.parallel.sharding import (
+        make_render_mesh, render_image_sharded, render_image_sharded_regen,
+    )
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene.procedural import courtyard_scene
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    mesh = make_render_mesh(sample_parallel=samples, device="cuda:0")
+    flat, textures = courtyard_scene(8)
+    scene = build_device_scene(flat, textures=textures, device=mesh.device)
+    w, h, nb = MESH_IMAGE["width"], MESH_IMAGE["height"], MESH_IMAGE["num_bounces"]
+    cam, sky = create_camera(*CAMERA, w / h), sky_state_from_ui(*SKY)
+    kw = dict(mesh=mesh, width=w, height=h, num_bounces=nb, exposure=0.25)
+    trace_regen_shaded.launches = 0
+    out = dict(regen=render_image_sharded_regen(scene, sky, cam, spp=MESH_REGEN_SPP, **kw),
+               k4=trace_regen_shaded.launches, shape=[mesh.shape["tiles"], mesh.shape["samples"]],
+               ranks=[mesh.tile_rank, mesh.sample_rank])
+    if (mesh.shape["tiles"], mesh.shape["samples"]) == (2, 2):
+        from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
+
+        for engine in ("kernel", "wavefront"):
+            intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
+            out[engine] = render_image_sharded(scene, sky, cam, spp=MESH_SCAN_SPP, engine=engine,
+                                               **kw)
+            out[f"{engine}_k1_k2"] = [intersect_closest_kernel.launches,
+                                      intersect_any_kernel.launches]
+    np.savez(pathlib.Path(outdir) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def _nccl_refusal_worker(rank: int, world: int, port: int) -> None:
+    """One of two ranks asking for nccl on the same card: make_render_mesh
+    must raise, naming the card, before any NCCL communicator is made."""
+    import torch.distributed as dist
+
+    from rayfinder_tpu_torch.parallel.sharding import make_render_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    make_render_mesh(device="cuda:0")
+
+
+def _record_k4(fn) -> tuple:
+    """fn() with the fused loop's K4 calls on the "kernel" engine recorded:
+    (fn's result, (the last call's arguments, copied before its launch, and
+    its outputs))."""
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+
+    kernels = pt._ENGINES["kernel"]
+    last = []
+
+    def shaded(*args):
+        saved = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        out = kernels.shaded(*args)
+        last[:] = [(saved, out)]
+        return out
+
+    pt._ENGINES["kernel"] = kernels._replace(shaded=shaded)
+    try:
+        result = fn()
+    finally:
+        pt._ENGINES["kernel"] = kernels
+    return result, last[0]
+
+
+def _k4_windows(call, card: str) -> dict:
+    """A recorded floor-0 K4 call of the sharded render held to its plain
+    version (trace_regen_shaded_reference) on its first and its last
+    QUERY_WINDOW lanes, with _hold's budget per window. At floor 0 no lane
+    depends on another, so one plain run takes both windows' lanes."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded_reference
+
+    args, k_out = call
+    n, floor, frame_base, nf = args[3].shape[0], args[11], args[7], args[9]
+    _require(floor == 0 and n >= 2 * QUERY_WINDOW,
+             f"the recorded K4 call has floor {floor} and {n} lanes")
+    rows = torch.cat([torch.arange(QUERY_WINDOW), torch.arange(n - QUERY_WINDOW, n)])
+    rows = rows.to(args[3].device)
+    sub = tuple(a[rows] if isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == n else a
+                for a in args)
+    p_out, plain_s = _timed(lambda: trace_regen_shaded_reference(*sub))
+    print(f"K4 call of the 1x1 sharded render recorded: {n} lanes at floor 0, samples "
+          f"{frame_base}-{frame_base + nf - 1}, rays {k_out[-1].tolist()}; its outputs against "
+          f"the plain version on the first and the last {QUERY_WINDOW} lanes (plain "
+          f"{plain_s:.1f} s for both) [{card}]", flush=True)
+    errs = {}
+    for i, name in enumerate(("head", "tail")):
+        win = slice(i * QUERY_WINDOW, (i + 1) * QUERY_WINDOW)
+        errs[name] = _hold(f"K4 sharded 1080p {name}", K4_OUTPUTS,
+                           [o[rows][win] for o in k_out[:len(K4_OUTPUTS)]],
+                           [o[win] for o in p_out[:len(K4_OUTPUTS)]],
+                           ("sample", "bounce", "flag"), card)
+    return dict(lanes=n, frame_base=frame_base, num_frames=nf, plain_s=plain_s,
+                max_abs_err=errs)
+
+
+def _sharded(scene26, sky, dev, card: str) -> dict:
+    """Phase 11 (c, d, e): render_image_sharded_regen on a 1x1 nccl mesh at
+    SHARDED_HD on the slice's scene, bit for bit the unsharded render_image
+    (one dispatch of 16 samples) with the same K4 launches, and its last K4
+    call held to plain on both ends (_k4_windows); the 1x1 images
+    of courtyard_scene(8) at MESH_IMAGE (regen, and the scan form with
+    "kernel" and "wavefront"); then each of GLOO_MESHES as that many gloo
+    processes sharing the card, against the 1x1 images (RMSE < 1e-6, every
+    rank the same image), the K4 launches per shard and the 2x2 scan form's
+    K1/K2 launches per rank, its K1/K2 image within SCAN_ENGINES_RMSE of its
+    wavefront image; then tools/render.py --mesh 2x1 --backend gloo
+    under torch.distributed.run; and two nccl ranks on the one card,
+    which make_render_mesh must refuse."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.parallel.sharding import (
+        make_render_mesh, render_image_sharded, render_image_sharded_regen,
+    )
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import SamplingParams, render_image
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene.procedural import courtyard_scene
+    from rayfinder_tpu_torch.utils.image import read_png
+
+    out = {"card": card}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    mesh = make_render_mesh(device=dev)
+    _require(mesh.shape == {"tiles": 1, "samples": 1}, f"a world of 1 gave the mesh {mesh.shape}")
+    hw, hh, spp, nb = (SHARDED_HD[k] for k in ("width", "height", "spp", "num_bounces"))
+    cam = create_camera(*CAMERA, hw / hh)
+    renders = {
+        "sharded": lambda: render_image_sharded_regen(
+            scene26, sky, cam, mesh=mesh, width=hw, height=hh, spp=spp, num_bounces=nb,
+            exposure=0.25),
+        "single": lambda: render_image(
+            scene26, sky, cam, width=hw, height=hh, sampling=SamplingParams(spp, nb),
+            exposure=0.25, samples_per_dispatch=spp),
+    }
+    images, k4, secs = {}, {}, {"sharded": [], "single": []}
+    for _ in range(2):  # in turns; the first pair warms the allocator up
+        for name, fn in renders.items():
+            trace_regen_shaded.launches = 0
+            images[name], s = _timed(fn)
+            k4[name] = trace_regen_shaded.launches
+            secs[name].append(s)
+    same = bool(np.array_equal(images["sharded"], images["single"]))
+    out["hd"] = dict(seconds=secs["sharded"], unsharded_seconds=secs["single"],
+                     k4=k4["sharded"], k4_unsharded=k4["single"], equal=same)
+    print(f"render_image_sharded_regen 1x1 nccl, slice scene {hw}x{hh} {spp} spp {nb} bounces: "
+          f"{', '.join(f'{x:.4f}' for x in secs['sharded'])} s, K4 {k4['sharded']} launches; "
+          f"render_image {', '.join(f'{x:.4f}' for x in secs['single'])} s, K4 {k4['single']} "
+          f"(in turns); bit for bit equal: {same} [{card}]", flush=True)
+    k4_sharded, k4_single = k4["sharded"], k4["single"]
+    _require(same and k4_sharded == k4_single > 0,
+             "the 1x1 sharded render differs from render_image")
+    # The shard's own K4 calls held to plain: the last one, recorded in one
+    # more render, which must give the same image.
+    recorded, call = _record_k4(renders["sharded"])
+    _require(bool(np.array_equal(recorded, images["sharded"])),
+             "the recorded sharded render differs from the timed one")
+    out["hd"]["k4_windows"] = _k4_windows(call, card)
+
+    flat8, tex8 = courtyard_scene(8)
+    scene8 = build_device_scene(flat8, textures=tex8, device=dev)
+    w, h = MESH_IMAGE["width"], MESH_IMAGE["height"]
+    cam8 = create_camera(*CAMERA, w / h)
+    kw = dict(mesh=mesh, width=w, height=h, num_bounces=MESH_IMAGE["num_bounces"], exposure=0.25)
+    ref = {"regen": render_image_sharded_regen(scene8, sky, cam8, spp=MESH_REGEN_SPP, **kw)}
+    for engine in ("kernel", "wavefront"):
+        ref[engine] = render_image_sharded(scene8, sky, cam8, spp=MESH_SCAN_SPP, engine=engine,
+                                           **kw)
+    dist.destroy_process_group()
+    for name, img in ref.items():
+        _require(bool(np.isfinite(img).all()) and img.shape == (h, w, 3),
+                 f"the 1x1 {name} image is not finite of shape {(h, w, 3)}")
+
+    out["meshes"] = {}
+    for tiles, samples in GLOO_MESHES:
+        world = tiles * samples
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            mp.spawn(_mesh_worker, args=(world, _free_port(), samples, tmp), nprocs=world)
+            spawn_s = time.perf_counter() - t0
+            ranks = [dict(np.load(pathlib.Path(tmp) / f"rank{r}.npz")) for r in range(world)]
+        label = f"{tiles}x{samples}"
+        entry = dict(seconds=spawn_s, k4_per_rank=[int(r["k4"]) for r in ranks])
+        for r, rank in enumerate(ranks):
+            _require(list(rank["shape"]) == [tiles, samples]
+                     and list(rank["ranks"]) == [r // samples, r % samples],
+                     f"mesh {label}: rank {r} has shape {rank['shape']}, place {rank['ranks']}")
+        for name in [k for k in ("regen", "kernel", "wavefront") if k in ranks[0]]:
+            for r, rank in enumerate(ranks[1:], 1):
+                _require(np.array_equal(rank[name], ranks[0][name]),
+                         f"mesh {label}: rank {r}'s {name} image differs from rank 0's")
+            err = _rmse(ranks[0][name], ref[name])
+            entry[f"{name}_rmse"] = err
+            entry[f"{name}_max_abs"] = float(np.abs(ranks[0][name] - ref[name]).max())
+            _require(err < 1e-6, f"mesh {label}: the {name} image differs from the 1x1 image "
+                     f"(RMSE {err:.3e})")
+        if "kernel" in ranks[0]:
+            entry["scan_k1_k2_per_rank"] = [rank["kernel_k1_k2"].tolist() for rank in ranks]
+            entry["wavefront_k1_k2_per_rank"] = [rank["wavefront_k1_k2"].tolist() for rank in ranks]
+            steps = MESH_SCAN_SPP // samples
+            _require(all(k == [steps * MESH_IMAGE["num_bounces"]] * 2
+                         for k in entry["scan_k1_k2_per_rank"]),
+                     f"mesh {label}: the scan form launched K1/K2 {entry['scan_k1_k2_per_rank']}")
+            _require(all(k == [0, 0] for k in entry["wavefront_k1_k2_per_rank"]),
+                     f"mesh {label}: the wavefront engine launched K1/K2")
+            # K1/K2's image against the wavefront's, which walks no BVH:
+            # the same samples through two walks.
+            diff = np.abs(ranks[0]["kernel"] - ranks[0]["wavefront"])
+            entry["kernel_vs_wavefront_rmse"] = err = _rmse(ranks[0]["kernel"],
+                                                            ranks[0]["wavefront"])
+            entry["kernel_vs_wavefront_max_abs"] = float(diff.max())
+            entry["kernel_vs_wavefront_pixels"] = int((diff.max(axis=-1) > 0).sum())
+            _require(err < SCAN_ENGINES_RMSE, f"mesh {label}: the scan form's kernel image is "
+                     f"RMSE {err:.3e} from its wavefront image")
+        _require(all(k == 1 for k in entry["k4_per_rank"]),
+                 f"mesh {label}: K4 launches per shard {entry['k4_per_rank']}, expected 1")
+        out["meshes"][label] = entry
+        print(f"gloo mesh {label} ({world} processes on the card), courtyard_scene(8) {w}x{h}: "
+              f"{spawn_s:.1f} s with start-up; K4 launches per shard {entry['k4_per_rank']}; "
+              + ", ".join(f"{k} {v:.3e}" for k, v in entry.items() if k.endswith(("_rmse", "_max_abs")))
+              + (f"; scan form K1/K2 per rank {entry['scan_k1_k2_per_rank']}, pixels where "
+               f"kernel and wavefront differ {entry['kernel_vs_wavefront_pixels']}"
+               if "scan_k1_k2_per_rank" in entry else "") + f" [{card}]", flush=True)
+
+    refused = ""
+    try:
+        mp.spawn(_nccl_refusal_worker, args=(2, _free_port()), nprocs=2)
+    except mp.ProcessRaisedException as err:
+        refused = str(err)
+    out["nccl_two_ranks_one_card"] = refused.strip().splitlines()[-1] if refused else ""
+    print(f"nccl with two ranks on the card: {out['nccl_two_ranks_one_card'] or 'not refused'} "
+          f"[{card}]", flush=True)
+    _require("takes one rank per card" in refused and torch.cuda.get_device_name(0) in refused,
+             "nccl with two ranks on one card was not refused, naming the card")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mesh.png"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "rayfinder_tpu_torch.tools.render",
+               "procedural:courtyard:8", "-o", str(png), "--mesh", "2x1", "--backend", "gloo",
+               "--width", str(w), "--height", str(h), "--spp", "4"]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        tool_s = time.perf_counter() - t0
+        for line in done.stdout.strip().splitlines():
+            print(f"  {line} [{card}]", flush=True)
+        _require(done.returncode == 0, f"tools/render.py --mesh 2x1 failed: {done.stderr[-2000:]}")
+        img = read_png(png)
+        _require(img.shape == (h, w, 3), f"tools/render.py --mesh wrote an image of {img.shape}")
+    out["tool_seconds"] = tool_s
+    print(f"tools/render.py --mesh 2x1 --backend gloo under torch.distributed.run: {tool_s:.1f} s "
+          f"with start-up, PNG {w}x{h} [{card}]", flush=True)
+    return out
+
+
+def _phase11(scene26, sky, camera, tile, dev, card: str) -> dict:
+    t0 = time.perf_counter()
+    numbers = {
+        "wavefront": _wavefront_check(scene26, camera, dev, card),
+        "sorted": _sorted_ab(scene26, sky, camera, tile, dev, card),
+        "sharded": _sharded(scene26, sky, dev, card),
+    }
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"phase 11: {numbers['seconds']:.1f} s", flush=True)
+    return numbers
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -2203,6 +2702,9 @@ def main(argv=None) -> int:
         print(f"  packed walk tables: bvh_nodes2 {tuple(scene26.bvh_nodes2.shape)} "
               f"{_nbytes(scene26.bvh_nodes2)} bytes, tri_pos4 {tuple(scene26.tri_pos4.shape)} "
               f"{_nbytes(scene26.tri_pos4)} bytes", flush=True)
+        print(f"  cluster tables: {scene26.num_clusters} clusters, cluster_tris "
+              f"{tuple(scene26.cluster_tris.shape)} {_nbytes(scene26.cluster_tris)} bytes, all "
+              f"five {_scene_bytes(scene26, CLUSTER_TABLES)} bytes", flush=True)
     camera = create_camera(*CAMERA, SLICE["width"] / SLICE["height"])
     walk_entries = _ray_queries(scene26, camera, dev, card)
 
@@ -2337,6 +2839,35 @@ def main(argv=None) -> int:
             entry["ms_deferred_window"] = hd[f"{key.lower()}_window_ms"]
             entry["bound_ms_deferred_window"] = hd[f"{key.lower()}_window_bound_ms"]
 
+    phase11 = {}
+    if full:
+        # --- 11. the wavefront engine, the sorted loop, the sharded renders -
+        # Their main paths: the sorted split route on the slice (K3 per
+        # dispatch), each shard's default route (K4 per shard) and the 2x2
+        # mesh's scan form (K1/K2 per rank), each counted from 0.
+        phase11 = _phase11(scene26, sky, camera, tile, dev, card)
+        sharded = phase11["sharded"]
+        scan_2x2 = sharded["meshes"]["2x2"]["scan_k1_k2_per_rank"]
+        for i, entry in enumerate(walk_entries):
+            entry["launches_by_path"]["phase 11 2x2 gloo mesh scan form, per rank "
+                                      f"({MESH_SCAN_SPP // 2} steps)"] = [k[i] for k in scan_2x2]
+        k3_entry, k4_one_call = path_entries[0], path_entries[2]
+        k3_entry["launches_by_path"] = {
+            k3_entry["path"]: k3_entry["launches"],
+            "phase 11 sorted split route, slice dispatch": phase11["sorted"]["launches"]["sorted"],
+        }
+        k4_one_call["launches_by_path"] = {
+            k4_one_call["path"]: k4_one_call["launches"],
+            "phase 11 1x1 nccl sharded 1920x1080 16 spp": sharded["hd"]["k4"],
+            **{f"phase 11 {label} gloo mesh, per shard": m["k4_per_rank"]
+               for label, m in sharded["meshes"].items()},
+        }
+        k4_one_call["max_abs_err_by_path"] = {
+            k4_one_call["path"]: k4_one_call["max_abs_err"],
+            "phase 11 1x1 nccl sharded 1920x1080, last K4 call, first and last "
+            f"{QUERY_WINDOW} lanes": sharded["hd"]["k4_windows"]["max_abs_err"],
+        }
+
     kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s from the start of the build",
           flush=True)
@@ -2358,6 +2889,7 @@ def main(argv=None) -> int:
         "textured_slice": textured_numbers,
         "scan": scan_numbers,
         "deferred": deferred_numbers,
+        "phase11": phase11,
         "l2_bytes_per_s": L2_RATE["bytes_per_s"],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

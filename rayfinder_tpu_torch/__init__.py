@@ -10,8 +10,11 @@ in-kernel-shaded (`inkernel=True`) and multi-segment (`segs=K`) forms for
 the loop's two other routes. The scan integrator (`accumulate_samples`,
 `render_image_tiled`) and the unfused loop (`engine="kernel_split"`) trace
 with the closest-hit and any-hit kernels; `render.renderer.Renderer` is the
-progressive renderer over them. Every kernel has a plain PyTorch version
-beside it; a wrapper takes it only for tensors that lie on the CPU. The package
+progressive renderer over them. `render.wavefront` is the cluster engine
+(`engine="wavefront"`), `parallel.sharding` renders tiles x samples across
+ranks over `torch.distributed`, and `tools/` holds the offline tools. Every
+kernel has a plain PyTorch version beside it; a wrapper takes it only for
+tensors that lie on the CPU. The package
 imports nothing of `rayfinder_tpu`: the host code it needs (scene loading,
 BVH build, the `.pt` format, assets) is its own copy.
 

@@ -1,23 +1,47 @@
-"""The triangle -> cluster rule of the JAX package's scenes.
+"""Triangle clusters of the JAX package's scenes.
 
-The port walks the BVH per thread and keeps no clusters, but the traversal
-diagnostics (prof/diag_iters.py) order bounce rays by the parent hit's
-cluster, as the JAX sorted loop does, and the scene upload counts the
-clusters (render/scene.py `num_clusters`), on which the scan integrator
-decides whether to sort bounce rays. The JAX scene cuts its leaf-ordered
+The CUDA kernels walk the BVH per thread, but the scene carries the JAX
+scene's cluster tables too (render/scene.py): the wavefront engine
+(render/wavefront.py) culls rays against the cluster boxes and tests whole
+cluster blocks, the sorted fused loop (render/pathtracer.py) keys lanes by
+the cluster of their hit, the traversal diagnostics (prof/diag_iters.py)
+order bounce rays the same way, and the scan integrator sorts bounce rays
+on scenes with many clusters. The JAX scene cuts its leaf-ordered
 triangles into BVH-treelet ranges of at most 128 triangles
 (`rayfinder_tpu.render.scene.build_device_scene`:
 `build_clusters(positions, ranges=treelet_ranges(bvh, DEFAULT_LEAF_SIZE,
-positions))`). This module is the port's copy of that numpy rule,
-`rayfinder_tpu.bvh.clusters.treelet_ranges`, without the TPU packing.
+positions))`). This module is the port's copy of those numpy rules,
+`rayfinder_tpu.bvh.clusters.treelet_ranges` and `build_clusters`, without
+the TPU's super-cluster padding (a DMA layout, off by default there).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 # The JAX package's cluster size (rayfinder_tpu.bvh.clusters.DEFAULT_LEAF_SIZE).
 DEFAULT_LEAF_SIZE = 128
+
+
+@dataclasses.dataclass
+class ClusterSet:
+    """Host-side cluster arrays (C clusters of up to L triangles each)."""
+
+    tris: np.ndarray  # (C, L, 3, 3) f32, padded blocks
+    aabb_min: np.ndarray  # (C, 3) f32
+    aabb_max: np.ndarray  # (C, 3) f32
+    tri_map: np.ndarray  # (C * L,) int32: padded slot -> real triangle index
+    start: np.ndarray  # (C,) int32: first leaf-order triangle of each cluster
+
+    @property
+    def num_clusters(self) -> int:
+        return self.tris.shape[0]
+
+    @property
+    def leaf_size(self) -> int:
+        return self.tris.shape[1]
 
 
 def treelet_ranges(
@@ -107,3 +131,53 @@ def triangle_clusters(bvh, positions: np.ndarray, leaf_size: int = DEFAULT_LEAF_
     scene's rule (treelet ranges with the surface-area merge)."""
     ranges = treelet_ranges(bvh, leaf_size, positions)
     return np.repeat(np.arange(ranges.shape[0], dtype=np.int64), ranges[:, 1] - ranges[:, 0])
+
+
+def build_clusters(
+    tri_positions: np.ndarray,
+    leaf_size: int = DEFAULT_LEAF_SIZE,
+    ranges: np.ndarray | None = None,
+) -> ClusterSet:
+    """Chunk leaf-ordered triangles into padded fixed-size cluster blocks.
+
+    ranges: optional (C, 2) [start, end) leaf-order ranges (treelet_ranges);
+    default = blind consecutive chunks of leaf_size.
+
+    Padding slots are DEGENERATE (all-zero) triangles: Moller-Trumbore rejects
+    them unconditionally (|det| = 0 < EPSILON), so a padded slot can never win
+    an argmin. tri_map maps each slot to its real leaf-order triangle; a
+    padding slot maps to the cluster's first triangle (clamped in range).
+    Cluster AABBs cover only the real triangles.
+    """
+    tri_positions = np.ascontiguousarray(tri_positions, dtype=np.float32)
+    num_tris = tri_positions.shape[0]
+    if ranges is None:
+        num_clusters = -(-num_tris // leaf_size)
+        starts = np.arange(num_clusters, dtype=np.int64) * leaf_size
+        ends = np.minimum(starts + leaf_size, num_tris)
+    else:
+        starts = np.asarray(ranges[:, 0], np.int64)
+        ends = np.asarray(ranges[:, 1], np.int64)
+        num_clusters = starts.shape[0]
+    counts = ends - starts
+    assert counts.max() <= leaf_size
+
+    blocks = np.zeros((num_clusters, leaf_size, 3, 3), dtype=np.float32)
+    tri_map = np.empty((num_clusters, leaf_size), dtype=np.int32)
+    slot = np.arange(leaf_size, dtype=np.int64)
+    idx = starts[:, None] + slot[None, :]  # (C, L) candidate indices
+    valid = slot[None, :] < counts[:, None]
+    idx_clamped = np.minimum(idx, num_tris - 1)
+    blocks[valid] = tri_positions[idx_clamped[valid]]
+    tri_map[:, :] = np.where(valid, idx_clamped, starts[:, None]).astype(np.int32)
+
+    mask = valid[:, :, None, None]
+    aabb_min = np.where(mask, blocks, np.inf).min(axis=(1, 2))
+    aabb_max = np.where(mask, blocks, -np.inf).max(axis=(1, 2))
+    return ClusterSet(
+        tris=blocks,
+        aabb_min=aabb_min,
+        aabb_max=aabb_max,
+        tri_map=tri_map.reshape(-1),
+        start=starts.astype(np.int32),
+    )

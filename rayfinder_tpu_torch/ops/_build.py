@@ -2,7 +2,9 @@
 
 The kernels are compiled at first use with nvcc for Hopper (sm_90a), one
 nvcc per source, all started together, and linked into one shared library
-with a plain C interface, loaded with ctypes. The library is
+with a plain C interface, loaded with ctypes. Processes that need the
+library at once build it one at a time under a file lock in the build
+directory, so the first builds it and the others load it. The library is
 named after a hash of the sources and the flags, under
 `rayfinder_tpu_torch/_build/`, and is rebuilt when either changes. Only the
 repository's own sources go in.
@@ -16,6 +18,7 @@ bit for bit with the plain torch versions on t, tri and occlusion.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -135,7 +138,14 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _compile(path)
+                # Processes that start together (the ranks of a sharded
+                # render) build one after another: the first builds, the
+                # others find the library when the lock is theirs.
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / "build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not path.exists():
+                        _compile(path)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _ARGTYPES.items():
                 fn = getattr(lib, name)

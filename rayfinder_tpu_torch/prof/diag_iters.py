@@ -4,7 +4,9 @@ Counterpart of prof/diag_iters.py together with bench.py
 _courtyard_efficiency. The bench camera's primary rays, then two cosine
 bounces off the hit surfaces (np.random.default_rng(7)), each bounce
 population ordered by the production dir key (parent hit cluster x 96
-direction bins), as the JAX bench builds them. On each population:
+direction bins), as the JAX bench builds them, or (--order none) left in the
+order of their parent rays, as the unsorted split route traces them. On
+each population:
 
 - K6 (ops/counted.py) walks every ray and counts its nodes visited, leaves
   entered and triangle tests;
@@ -22,6 +24,7 @@ comparable. Per ray, need <= triangle tests holds (a leaf entered before the
 true hit is always tested); rays that break it are listed.
 
     python -m rayfinder_tpu_torch.prof.diag_iters [scale=26] [--device cuda|cpu] [--size 512]
+        [--order dir|none]
 
 On the CPU it runs the plain versions (use a small scale and size there).
 """
@@ -162,9 +165,13 @@ def measure(scene: DeviceScene, boxes, o, d, t_max: float = T_MAX) -> dict:
                 hit_fraction=float(hit.float().mean()))
 
 
-def populations(scene: DeviceScene, camera, w: int, h: int, tri_cluster=None):
-    """Measure the primary, bounce-1 and bounce-2 populations in turn.
-    Yields (name, measure(...) result)."""
+def populations(scene: DeviceScene, camera, w: int, h: int, tri_cluster=None,
+                order: str = "dir"):
+    """Measure the primary, bounce-1 and bounce-2 populations in turn, the
+    bounces ordered by the dir key (order="dir") or left in their parents'
+    order ("none"). Yields (name, measure(...) result)."""
+    if order not in ("dir", "none"):
+        raise ValueError(f"order={order!r}: dir or none")
     dev = scene.device
     boxes = leaf_boxes(scene)
     if tri_cluster is None:
@@ -177,8 +184,9 @@ def populations(scene: DeviceScene, camera, w: int, h: int, tri_cluster=None):
     for b in (1, 2):
         on, dn, trih = cosine_bounce(scene, on, dn, r["hit"].cpu().numpy(),
                                      r["t"].cpu().numpy(), r["tri"].cpu().numpy(), rng)
-        order = dir_key_order(tri_cluster, dn, trih)
-        on, dn = on[order], dn[order]
+        if order == "dir":
+            perm = dir_key_order(tri_cluster, dn, trih)
+            on, dn = on[perm], dn[perm]
         r = measure(scene, boxes, torch.from_numpy(np.ascontiguousarray(on)).to(dev),
                     torch.from_numpy(np.ascontiguousarray(dn)).to(dev))
         yield f"bounce{b}", r
@@ -219,6 +227,8 @@ def main(argv=None) -> None:
     ap.add_argument("scale", type=int, nargs="?", default=26)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--size", type=int, default=512, help="primary rays per side")
+    ap.add_argument("--order", default="dir", choices=("dir", "none"),
+                    help="bounce rays sorted by the dir key (default) or in their parents' order")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("diag_iters: no CUDA device (pass --device cpu for the plain versions)")
@@ -230,7 +240,8 @@ def main(argv=None) -> None:
           f"[{args.device}]", flush=True)
     camera = create_camera(*BENCH_CAMERA, 1.0)
     t0 = time.perf_counter()
-    for name, r in populations(scene, camera, args.size, args.size):
+    print(f"bounce order: {args.order}", flush=True)
+    for name, r in populations(scene, camera, args.size, args.size, order=args.order):
         print(report(name, r), flush=True)
     print(f"took {time.perf_counter() - t0:.1f} s", flush=True)
 

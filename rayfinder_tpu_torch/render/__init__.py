@@ -1,2 +1,3 @@
-"""Rendering: device scene, camera, sampling, traversal, the regen loops, the
-scan integrator and the progressive Renderer."""
+"""Rendering: device scene, camera, sampling, traversal (the stack walks and
+the wavefront engine), the regen loops, the scan integrator, the progressive
+Renderer and the deferred renderer."""

@@ -1,8 +1,10 @@
 """Path tracer: the port of `rayfinder_tpu.render.pathtracer`. Its fused
 regeneration loop (accumulate_samples_regen with engine="pallas":
-_accumulate_regen_fused and its two other routes, _accumulate_regen_inkernel
-and _accumulate_regen_fused_segs), the unfused regeneration loop over the
-ray queries K1/K2 (accumulate_lanes_regen's loop for its other engines), the
+_accumulate_regen_fused, its sorted form _accumulate_regen_fused_sorted and
+its two other routes, _accumulate_regen_inkernel and
+_accumulate_regen_fused_segs), the unfused regeneration loop over the ray
+queries K1/K2 or the wavefront engine (accumulate_lanes_regen's loop for its
+other engines), the
 scan integrator (trace_radiance, accumulate_sample(s), the windows of
 render_image_tiled), and the accumulator choice of render_image and the
 Renderer (pick_accumulator).
@@ -25,6 +27,9 @@ makes, per outer iteration, one call of the persistent path kernel K3
 on the card and stops each lane at its next surface hit, and one shade step
 in torch (render/shade.py) that prepares the NEE sample and the scatter ray.
 As lanes finish, the busy ones are compacted into narrower batches (phases).
+With sort=True the split route also reorders its lanes after every iteration
+by the cluster of their hit and the direction of their next ray
+(_accumulate_regen_fused_sorted).
 The hybrid in-kernel route (inkernel=True with a compact_floor below the
 batch) runs K4 per phase after a split first phase; the segs route (segs=K)
 keeps K paths per lane in the kernel K5 (ops/regen_segs.py).
@@ -56,7 +61,7 @@ from ..ops.walk import (
 )
 from ..sky.model import SkyState, sky_radiance_dist
 from .camera import Camera, generate_camera_ray_lens, primary_ray
-from .intersect import T_MAX, dot
+from .intersect import T_MAX, dot, to_int32
 from .rng import animated_blue_noise, blue_noise_tile, noise_of
 from .sampling import sample_cosine_hemisphere, sample_solar_disk_direction
 from .scene import DeviceScene
@@ -70,6 +75,7 @@ from .texture_eval import eval_texture
 from .tiling import block_order, unswizzle
 from .tonemap import tonemap
 from .traverse import intersect_any, intersect_closest
+from .wavefront import intersect_any_wavefront, intersect_closest_wavefront
 
 # Phase compaction: when the busy-lane count falls below 1/DIV of the batch,
 # the busy lanes move into a batch that size, then down a ladder to FLOOR
@@ -102,28 +108,40 @@ _ENGINES = {
                       trace_regen_segs_reference),
 }
 
+
+def _closest_wavefront(scene, origin, direction, t_max):
+    hit, t, tri, _ = intersect_closest_wavefront(scene, origin, direction, t_max)
+    return hit, t, tri, None
+
+
+def _any_wavefront(scene, origin, direction, t_max):
+    return intersect_any_wavefront(scene, origin, direction, t_max)[0]
+
+
 # engine name -> the ray queries (closest, any_hit) of the unfused loop and
 # the scan integrator (get_engine). "kernel" and "kernel_split" are K1/K2
 # (the JAX "pallas" and "pallas_split"; on CPU tensors their wrappers run
 # the plain versions); "plain" is their plain version, the packed walk in
 # torch; "reference" the plane walk (render/traverse.py, the JAX
-# "reference"), which the packed walk equals bit for bit.
+# "reference"), which the packed walk equals bit for bit; "wavefront" the
+# cluster engine (render/wavefront.py, torch code as in JAX, where it is
+# XLA's).
 _WALKS = {
     "kernel": (intersect_closest_kernel, intersect_any_kernel),
     "kernel_split": (intersect_closest_kernel, intersect_any_kernel),
     "plain": (intersect_closest_reference, intersect_any_reference),
     "reference": (intersect_closest, intersect_any),
+    "wavefront": (_closest_wavefront, _any_wavefront),
 }
 # The engines of accumulate_samples_regen that run the unfused loop.
-_UNFUSED = ("kernel_split", "reference")
+_UNFUSED = ("kernel_split", "reference", "wavefront")
 
 
 def get_engine(engine: str):
     """Resolve a traversal engine name to (closest, any_hit) callables:
-    closest(scene, o, d, t_max) -> (hit, t, tri_idx, nodes_visited);
+    closest(scene, o, d, t_max) -> (hit, t, tri_idx, extra), extra being
+    nodes_visited on the stack walks and None on "wavefront", as in JAX;
     any_hit(scene, o, d, t_max) -> occluded."""
-    if engine == "wavefront":
-        raise ValueError("the wavefront engine is not ported: ROADMAP.md section 1, item 9")
     if engine not in _WALKS:
         raise ValueError(f"unknown traversal engine {engine!r}: the port has {sorted(_WALKS)}")
     return _WALKS[engine]
@@ -364,7 +382,8 @@ class _Dispatch:
         )
 
     def split_step(self, st, lanes, lrad):
-        """One K3 call + one shade step."""
+        """One K3 call + one shade step. Returns lrad and the hit triangle of
+        each lane (-1 where the lane ran out of samples)."""
         (sample, bounce, origin, direction, thr, srad, lrad, _t, tri) = self.kernels.split(
             *self.pixel_args(lanes), T_MAX,
             st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
@@ -375,7 +394,7 @@ class _Dispatch:
         st.update(sample=sample, bounce=bounce, flag=flag, origin=origin,
                   direction=direction, thr=thr, srad=srad, shadow_o=shadow_o,
                   shadow_d=shadow_d, contrib=contrib)
-        return lrad
+        return lrad, tri
 
     def shaded_call(self, st, lanes, lrad, live_floor, rays):
         """One K4 call down to `live_floor` live lanes per 128-lane tile; the
@@ -503,7 +522,7 @@ def _accumulate_regen_fused(d: _Dispatch, accum, lanes, floor, count_rays):
     counts = torch.zeros(2, dtype=torch.int64, device=accum.device)
 
     def step(lrad):
-        lrad = d.split_step(st, lanes, lrad)
+        lrad, _ = d.split_step(st, lanes, lrad)
         if count_rays:
             _add_counts(counts, st["flag"])
         return lrad
@@ -512,6 +531,123 @@ def _accumulate_regen_fused(d: _Dispatch, accum, lanes, floor, count_rays):
         st["sample"] = torch.where(valid, st["sample"], d.nf)
 
     out = _phased_loop(accum, lanes, floor, st, step, lambda: st["sample"] < d.nf, pad)
+    return _with_counts(out, counts, batch * d.nf) if count_rays else out
+
+
+# Lane sort keys of the sorted fused loop: a lane with a hit keys below
+# _REGEN_KEY (its hit's cluster x 96 direction bins), a lane without a hit
+# that has samples left at _REGEN_KEY + its pixel, a finished lane at
+# _DEAD_KEY (the JAX package's bands).
+_REGEN_KEY = 2**28
+_DEAD_KEY = 2**30
+
+
+def triangle_clusters(scene: DeviceScene) -> torch.Tensor:
+    """(T,) int32: the cluster of each leaf-order triangle, from the scene's
+    cluster_tri_map (the JAX sorted loop's `t2c`). A padding slot maps to its
+    own cluster's first triangle, so every write to a triangle gives it the
+    same cluster."""
+    tri_map = scene.cluster_tri_map.long()
+    slots = torch.arange(tri_map.shape[0], dtype=torch.int32, device=tri_map.device)
+    t2c = torch.zeros(scene.num_triangles, dtype=torch.int32, device=tri_map.device)
+    t2c[tri_map] = slots // scene.cluster_tris.shape[1]
+    return t2c
+
+
+def _dir_bin_key(t2c, tri, direction, pix, live):
+    """The "dir" sort key (JAX `_dir_bin_key`): the lane's hit cluster x 96
+    bins of its continuation direction (cube face x a 4x4 grid on it); a
+    lane without a hit sorts by its pixel after every hit lane, so fresh
+    camera rays stay together, and a finished lane last. int32, as JAX's."""
+    hit = tri >= 0
+    hc = t2c[tri.clamp(min=0).long()]
+    dx, dy, dz = direction.unbind(1)
+    adx, ady, adz = dx.abs(), dy.abs(), dz.abs()
+    is_x = (adx >= ady) & (adx >= adz)
+    is_y = ~is_x & (ady >= adz)
+    m = torch.maximum(torch.maximum(adx, ady), adz)
+    m = torch.maximum(m, m.new_tensor(1e-20))
+    ds = torch.where(is_x, dx, torch.where(is_y, dy, dz))
+    face = torch.where(is_x, 0, torch.where(is_y, 2, 4)) + (ds > 0).to(torch.int32)
+    u_ = torch.where(is_x, dy, torch.where(is_y, dz, dx))
+    v_ = torch.where(is_x, dz, torch.where(is_y, dx, dy))
+    ub = to_int32((u_ / m + 1.0) * 2.0).clamp(0, 3)
+    vb = to_int32((v_ / m + 1.0) * 2.0).clamp(0, 3)
+    key = hc * 96 + (face * 4 + ub) * 4 + vb
+    key = torch.where(hit, key, _REGEN_KEY + pix)
+    return torch.where(live, key, _DEAD_KEY).to(torch.int32)
+
+
+# The lane state of the split route, as the sorted loop moves it: float
+# columns (with their widths) and int columns.
+_FLOAT_COLS = (("origin", 3), ("direction", 3), ("thr", 3), ("srad", 3), ("lrad", 3),
+               ("shadow_o", 3), ("shadow_d", 3), ("contrib", 3), ("u", 1), ("v_tex", 1),
+               ("noise_base", 2))
+_INT_COLS = ("sample", "bounce", "flag", "pix")
+
+
+def _permute(state, order):
+    """Reorder the lanes of `state` (dict of the columns above) by `order`:
+    one gather of the float columns packed side by side and one of the int
+    columns (integers stay integers). Each column comes back contiguous, as
+    the path kernel takes it."""
+    floats = torch.cat([state[k].reshape(-1, w) for k, w in _FLOAT_COLS], 1)[order]
+    ints = torch.stack([state[k] for k in _INT_COLS], 1)[order]
+    col = 0
+    for k, w in _FLOAT_COLS:
+        x = floats[:, col:col + w]
+        state[k] = (x if w > 1 else x[:, 0]).contiguous()
+        col += w
+    for i, k in enumerate(_INT_COLS):
+        state[k] = ints[:, i].contiguous()
+
+
+def _accumulate_regen_fused_sorted(d: _Dispatch, accum, lanes, floor, count_rays):
+    """The split route with the lanes sorted every iteration (JAX
+    `_accumulate_regen_fused_sorted` with its "dir" key): one K3 call and
+    one shade step, then the lanes are reordered by _dir_bin_key (one
+    stable argsort, _permute), so that the next K3 call walks lanes whose
+    rays leave the same cluster in like directions side by side, and
+    finished lanes sit at the tail.
+
+    Lanes move from the first iteration, so every lane carries its pixel
+    (`pix`) and its own radiance from zero, scatter-added into the pixels at
+    the end of every phase, the first included (_flush). Each pixel has one
+    lane per phase and a lane's arithmetic does not depend on its position,
+    so from a zero accumulator the result equals the unsorted split route's
+    bit for bit, with the same ray counts; from another accumulator the
+    first phase's sums are grouped differently (ulps). Compaction follows
+    the same phase ladder. Returns the new accumulation buffer and, with
+    count_rays, the exact [closest, shadow] ray counts."""
+    batch = accum.shape[0]
+    dev = accum.device
+    st = _initial_state(d, lanes, batch, dev)
+    st.update(lanes)
+    st["pix"] = torch.arange(batch, dtype=torch.int32, device=dev)
+    st["lrad"] = torch.zeros(batch, 3, device=dev)
+    t2c = triangle_clusters(d.scene)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def step():
+        # The lanes' pixel data (u, v_tex, noise_base) ride in st.
+        st["lrad"], tri = d.split_step(st, st, st["lrad"])
+        if count_rays:
+            _add_counts(counts, st["flag"])
+        live = st["sample"] < d.nf
+        key = _dir_bin_key(t2c, tri, st["direction"], st["pix"], live)
+        _permute(st, torch.argsort(key, stable=True))
+
+    out = accum
+    for size in _phase_sizes(batch, floor)[1:]:
+        while int((st["sample"] < d.nf).sum()) > size:
+            step()
+        out = _flush(out, st["pix"], st.pop("lrad"), batch)
+        valid, st["pix"] = _compact(st["sample"] < d.nf, size, st.pop("pix"), batch, st)
+        st["sample"] = torch.where(valid, st["sample"], d.nf)  # padding: dead
+        st["lrad"] = torch.zeros(size, 3, device=dev)
+    while bool((st["sample"] < d.nf).any()):
+        step()
+    out = _flush(out, st["pix"], st["lrad"], batch)
     return _with_counts(out, counts, batch * d.nf) if count_rays else out
 
 
@@ -616,7 +752,7 @@ def _split_phase0(d: _Dispatch, st, lanes, accum, size, rays=None):
     lrad = accum.clone()
     counts = torch.zeros(2, dtype=torch.int64, device=accum.device)
     while int((st["sample"] < d.nf).sum()) > size:
-        lrad = d.split_step(st, lanes, lrad)
+        lrad, _ = d.split_step(st, lanes, lrad)
         if rays is not None:
             _add_counts(counts, st["flag"])
     if rays is not None:
@@ -760,6 +896,7 @@ def accumulate_lanes_regen(
     count_rays: bool = False,
     inkernel: bool | None = None,
     segs: int = 1,
+    sort: bool = False,
 ):
     """Regeneration accumulation over an arbitrary set of lanes, each with
     its pixel's data: centre u, v_tex (B,) f32 and blue-noise tile value
@@ -771,12 +908,14 @@ def accumulate_lanes_regen(
         raise ValueError(
             f"unknown engine {engine!r}: the port has {sorted([*_ENGINES, *_UNFUSED])}"
         )
-    if engine in _UNFUSED and (inkernel is not None or segs != 1):
+    if engine in _UNFUSED and (inkernel is not None or segs != 1 or sort):
         raise ValueError(f"engine {engine!r} is the unfused loop: it takes no route keyword")
     if segs != 1 and segs not in SEGS:
         raise ValueError(f"segs={segs}: 1 (off) or one of {SEGS}")
     if inkernel and segs != 1:
         raise ValueError("inkernel=True and segs > 1 are two different routes")
+    if sort and (inkernel is not False or segs != 1):
+        raise ValueError("sort is the split route's keyword (inkernel=False)")
     if inkernel is None:
         inkernel = segs == 1
     dev = accum.device
@@ -797,6 +936,8 @@ def accumulate_lanes_regen(
         return _accumulate_regen_inkernel(d, accum, lanes, floor, count_rays)
     if segs > 1:
         return _accumulate_regen_fused_segs(d, accum, lanes, floor, count_rays, segs)
+    if sort:
+        return _accumulate_regen_fused_sorted(d, accum, lanes, floor, count_rays)
     return _accumulate_regen_fused(d, accum, lanes, floor, count_rays)
 
 
@@ -818,6 +959,7 @@ def accumulate_samples_regen(
     count_rays: bool = False,
     inkernel: bool | None = None,
     segs: int = 1,
+    sort: bool = False,
 ):
     """Add samples frame_base .. frame_base + num_frames - 1 of every pixel
     into accum ((H*W, 3) f32, block-major pixel order, render/tiling.py)
@@ -843,7 +985,12 @@ def accumulate_samples_regen(
       K4 runs each 128-lane tile of each compacted phase down to a live
       floor (the JAX RAYFINDER_INKERNEL=1 route);
     - inkernel=False: the split route, the path kernel K3 + a torch shade
-      step per iteration;
+      step per iteration. With sort=True it reorders the lanes by the "dir"
+      key after every iteration (_accumulate_regen_fused_sorted); with
+      False, the default, it does not. The JAX package sorts by default on
+      scenes of more than SORT_THRESHOLD clusters; on the H100 the sort made
+      K3 faster but the dispatch slower (PERF.md), so here it runs only when
+      asked. Only this route takes sort=True; the sort changes no pixel;
     - segs=K (2 to 4): the kernel K5 keeps K paths per lane and returns K
       hit segments per call (the JAX RAYFINDER_SEGS=K route).
     compact_floor is the narrowest compaction phase: by default the batch
@@ -855,7 +1002,8 @@ def accumulate_samples_regen(
 
     engine="kernel_split" runs the unfused loop (_accumulate_unfused) over
     the ray queries K1/K2 (the JAX "pallas_split"), engine="reference" the
-    same loop over the plane walk (the JAX "reference"); they take no route
+    same loop over the plane walk (the JAX "reference"), engine="wavefront"
+    over the cluster engine (render/wavefront.py); they take no route
     keyword."""
     dev = accum.device
     ys, xs = _pixels(width, height, dev)
@@ -871,6 +1019,7 @@ def accumulate_samples_regen(
         scene, sky, camera, frame_base, accum, u, v_tex, noise_base, inv_dims,
         num_bounces=num_bounces, spp=spp, num_frames=num_frames, engine=engine,
         compact_floor=compact_floor, count_rays=count_rays, inkernel=inkernel, segs=segs,
+        sort=sort,
     )
 
 
@@ -880,12 +1029,14 @@ def pick_accumulator(scene: DeviceScene, engine: str):
     On "kernel" and "plain" the fused regeneration loop
     (accumulate_samples_regen) on every scene: its routes take any scene
     (the CUDA kernels walk the BVH per thread and read the shading tables
-    from global memory), and the JAX package's sorted fused loop for big
-    scenes only reorders lanes, which changes no pixel, so its image is the
-    unsorted loop's. On the unfused engines ("kernel_split", "reference"),
-    as in the JAX package: the regeneration loop on scenes of at most
-    SORT_THRESHOLD clusters, and the scan form (accumulate_samples), whose
-    per-bounce coherence sort needs lane-free pixels, on bigger ones."""
+    from global memory). The sorted fused loop (the split route with
+    sort=True, which the JAX package takes on big scenes) only reorders
+    lanes, which changes no pixel: from a zero accumulator its image is the
+    unsorted loop's bit for bit (tests/test_torch_sorted.py). On the unfused engines
+    ("kernel_split", "reference", "wavefront"), as in the JAX package: the
+    regeneration loop on scenes of at most SORT_THRESHOLD clusters, and the
+    scan form (accumulate_samples), whose per-bounce coherence sort needs
+    lane-free pixels, on bigger ones."""
     if engine in _ENGINES or scene.num_clusters <= SORT_THRESHOLD:
         return accumulate_samples_regen
     return accumulate_samples
@@ -976,12 +1127,14 @@ def render_image(
     samples_per_dispatch: int = 32,
     inkernel: bool | None = None,
     segs: int = 1,
+    sort: bool = False,
 ) -> np.ndarray:
     """Render a full image on the scene's device: spp progressive samples
     through pick_accumulator's choice, running-mean estimator, ACES tonemap
     + gamma (wgsl:59-63). Returns (H, W, 3) float32 numpy in [0, 1].
-    inkernel and segs choose the fused loop's route on "kernel" and "plain"
-    (accumulate_samples_regen; by default each dispatch runs inside K4).
+    inkernel, segs and sort choose the fused loop's route on "kernel" and
+    "plain" (accumulate_samples_regen; by default each dispatch runs inside
+    K4).
 
     The JAX package caps big scenes at 4 samples per dispatch, to keep a
     TPU worker from crashing on long programs; nothing here needs it."""
@@ -991,11 +1144,11 @@ def render_image(
     spp = sampling.num_samples_per_pixel
     accumulate = pick_accumulator(scene, engine)
     route = {}
-    if inkernel is not None or segs != 1:
+    if inkernel is not None or segs != 1 or sort:
         if engine not in _ENGINES:
-            raise ValueError(f"engine {engine!r} has no routes: inkernel and segs are the "
-                             f"fused loop's ({sorted(_ENGINES)})")
-        route = dict(inkernel=inkernel, segs=segs)
+            raise ValueError(f"engine {engine!r} has no routes: inkernel, segs and sort are "
+                             f"the fused loop's ({sorted(_ENGINES)})")
+        route = dict(inkernel=inkernel, segs=segs, sort=sort)
     frame = 0
     while frame < spp:
         n = min(samples_per_dispatch, spp - frame)

@@ -3,8 +3,8 @@
 Counterpart of `rayfinder_tpu.render.scene` (the reference's scene bind
 group, src/pt/reference_path_tracer.cpp:131-270): BVH node planes, triangle
 attributes in BVH leaf order, a texture-descriptor table and one packed texel
-atlas. The TPU cluster tables are left out: the CUDA kernels walk the BVH
-itself, one thread per ray.
+atlas, and the cluster tables (below). The CUDA kernels walk the BVH itself,
+one thread per ray.
 
 Texels are stored as the int32 view of the packed BGRA uint32 words, because
 torch's uint32 supports few operations; shifts and masks on the int32 view
@@ -29,13 +29,18 @@ from them:
 A leaf is a node with `tri_count > 0`, as the walks read it. The root's own
 box stays in the SoA planes, which the plain torch walk reads.
 
-The scene also carries `num_clusters`, the number of BVH-treelet clusters
-the JAX package cuts the same triangles into (bvh/clusters.py
-`treelet_ranges`): the scan integrator sorts bounce rays on scenes with
-more clusters than `render/pathtracer.py SORT_THRESHOLD`, as the JAX one
-does on `cluster_tris.shape[0]`. The JAX scene pads its cluster list only
-above 512 clusters, so the two counts are equal wherever the decision
-could differ.
+The scene also carries the JAX scene's cluster tables (bvh/clusters.py):
+its leaf-order triangles cut into BVH-treelet ranges of at most 128
+(`treelet_ranges` with the surface-area merge), each a padded block of
+triangles with its box (`cluster_tris`, `cluster_min`, `cluster_max`,
+`cluster_tri_map`, `cluster_start`), built from the SoA planes and the
+triangle positions at upload. The wavefront engine (render/wavefront.py)
+walks them, and the sorted fused loop keys its lanes by their hit's cluster.
+`num_clusters` is their count: the scan integrator sorts bounce rays on
+scenes with more clusters than `render/pathtracer.py SORT_THRESHOLD`, as the
+JAX one does on `cluster_tris.shape[0]`. The JAX scene pads its cluster list
+only where an opt-in TPU layout asks for it, so by default the tables are
+equal field by field.
 
 The entry points put the scene on the card unless the caller names another
 device. They take the port's `FlattenedScene` and `Texture` and the JAX
@@ -52,7 +57,7 @@ import numpy as np
 import torch
 
 from ..bvh import Bvh, reorder_attributes
-from ..bvh.clusters import DEFAULT_LEAF_SIZE, treelet_ranges
+from ..bvh.clusters import DEFAULT_LEAF_SIZE, build_clusters, treelet_ranges
 from ..scene import FlattenedScene, Texture
 
 # Packed-texel-atlas budget, as in rayfinder_tpu.render.scene (the
@@ -94,9 +99,12 @@ class DeviceScene:
     bvh_nodes2: torch.Tensor  # (M, 16) i32, one record per interior node
     tri_pos4: torch.Tensor  # (T, 12) f32
 
-    # BVH-treelet clusters of the JAX package's scene (module docstring); an
-    # int on the host, not a tensor.
-    num_clusters: int
+    # BVH-treelet clusters of the JAX package's scene (module docstring).
+    cluster_tris: torch.Tensor  # (C, L, 3, 3) f32 padded blocks
+    cluster_min: torch.Tensor  # (C, 3) f32
+    cluster_max: torch.Tensor  # (C, 3) f32
+    cluster_tri_map: torch.Tensor  # (C * L,) i32 padded slot -> real triangle
+    cluster_start: torch.Tensor  # (C,) i32 first leaf-order triangle of each cluster
 
     @property
     def num_triangles(self) -> int:
@@ -107,18 +115,22 @@ class DeviceScene:
         return self.bvh_aabb_min.shape[0]
 
     @property
+    def num_clusters(self) -> int:
+        return self.cluster_tris.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.tri_positions.device
 
     def to(self, device) -> "DeviceScene":
-        """The scene on `device`; `num_clusters` is carried as it is."""
+        """The scene on `device`."""
         return dataclasses.replace(self, **{name: getattr(self, name).to(device)
                                             for name in tensor_fields()})
 
 
 def tensor_fields() -> list[str]:
-    """The names of DeviceScene's tensor fields (all but num_clusters)."""
-    return [f.name for f in dataclasses.fields(DeviceScene) if f.name != "num_clusters"]
+    """The names of DeviceScene's tensor fields."""
+    return [f.name for f in dataclasses.fields(DeviceScene)]
 
 
 def _scene_arrays(
@@ -209,24 +221,30 @@ def _walk_tables(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return dict(bvh_nodes2=nodes2, tri_pos4=tri_pos4.reshape(-1, 12))
 
 
-def _num_clusters(arrays: dict[str, np.ndarray]) -> int:
-    """The JAX scene's unpadded cluster count: its treelet ranges of at most
-    DEFAULT_LEAF_SIZE leaf-order triangles, from the SoA planes."""
+def _cluster_tables(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """The JAX scene's cluster tables (module docstring): its treelet ranges
+    of at most DEFAULT_LEAF_SIZE leaf-order triangles, from the SoA planes,
+    as padded blocks."""
     bvh = types.SimpleNamespace(triangle_count=arrays["bvh_tri_count"],
                                 triangles_offset=arrays["bvh_tri_offset"],
                                 second_child_offset=arrays["bvh_second_child"])
-    return len(treelet_ranges(bvh, DEFAULT_LEAF_SIZE, np.asarray(arrays["tri_positions"])))
+    positions = np.asarray(arrays["tri_positions"], np.float32)
+    clusters = build_clusters(positions,
+                              ranges=treelet_ranges(bvh, DEFAULT_LEAF_SIZE, positions))
+    return dict(cluster_tris=clusters.tris, cluster_min=clusters.aabb_min,
+                cluster_max=clusters.aabb_max, cluster_tri_map=clusters.tri_map,
+                cluster_start=clusters.start)
 
 
 def _upload(arrays: dict[str, np.ndarray], device) -> DeviceScene:
-    arrays = {**arrays, **_walk_tables(arrays)}
+    arrays = {**arrays, **_walk_tables(arrays), **_cluster_tables(arrays)}
     fields = {}
     for name in tensor_fields():
         a = np.asarray(arrays[name])
         if name == "texels":
             a = a.astype(np.uint32).view(np.int32)
         fields[name] = torch.from_numpy(np.array(a, order="C")).to(device)
-    return DeviceScene(**fields, num_clusters=_num_clusters(arrays))
+    return DeviceScene(**fields)
 
 
 def build_device_scene(
@@ -247,9 +265,9 @@ def build_device_scene(
 
 def scene_from_jax(arrays: dict[str, np.ndarray], device="cuda") -> DeviceScene:
     """Carry a JAX `DeviceScene` over: `arrays` maps its field names to
-    numpy arrays (`np.asarray` of each field). The TPU cluster fields are
-    ignored; the packed walk tables and the cluster count are built from the
-    SoA planes."""
+    numpy arrays (`np.asarray` of each field). Its cluster fields are
+    ignored: the packed walk tables and the cluster tables are built from
+    the SoA planes and the triangle positions, as for any other scene."""
     return _upload(arrays, device)
 
 

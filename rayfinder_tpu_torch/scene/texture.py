@@ -7,9 +7,10 @@ the reference uploads to the GPU (src/common/texture.{hpp,cpp}), so that the
 (src/pt/reference_path_tracer.wgsl:552-565).
 
 Counterpart of `rayfinder_tpu.scene.texture`. The machine with the GPU has
-no Pillow, so PNGs of the plain form this package writes (8-bit RGB or
-RGBA, no interlace, filter 0 on every row: `encode_png`) are encoded and
-decoded with zlib alone; any other image needs Pillow.
+no Pillow, so PNGs are encoded (`encode_png`: 8-bit RGB or RGBA, filter 0
+on every row) and decoded (`decode_png`: 8-bit grey, grey + alpha, RGB or
+RGBA, no interlace, any row filter) with zlib alone; any other image (JPEG,
+palette, 16-bit, interlaced) needs Pillow.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-# PNG colour types by channel count: RGB, RGBA.
+# PNG colour types of encode_png by channel count: RGB, RGBA.
 _COLOR_TYPE = {3: 2, 4: 6}
 
 
@@ -45,9 +46,47 @@ def encode_png(rgba: np.ndarray) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
-def _decode_plain_png(data: bytes) -> np.ndarray | None:
-    """(h, w, 4) uint8 RGBA or (h, w, 3) RGB of a PNG in `encode_png`'s
-    form; None for any other image."""
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth)
+    of (h, 1 + stride) filtered rows with `bpp` bytes per pixel; returns
+    the (h, stride) uint8 scanlines. Sub is a running sum per channel and
+    up a sum with the row above; average and Paeth go pixel by pixel."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, line = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if kind == 1:
+            line = line.reshape(-1, bpp).cumsum(axis=0).reshape(-1)
+        elif kind == 2:
+            line = line + prev
+        elif kind in (3, 4):
+            for x in range(0, stride, bpp):
+                a = line[x - bpp:x] if x else np.zeros(bpp, np.int32)
+                b = prev[x:x + bpp]
+                if kind == 3:
+                    pred = (a + b) // 2
+                else:
+                    c = prev[x - bpp:x] if x else np.zeros(bpp, np.int32)
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+                line[x:x + bpp] = (line[x:x + bpp] + pred) & 0xFF
+        elif kind != 0:
+            raise ValueError(f"PNG row filter {kind} is not one of 0-4")
+        prev = line & 0xFF
+        out[y] = prev
+    return out
+
+
+# PNG colour types by channel count: grey, grey + alpha, RGB, RGBA.
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
+
+
+def decode_png(data: bytes) -> np.ndarray | None:
+    """(h, w, c) uint8 pixels of an 8-bit, non-interlaced PNG as stored (c =
+    1 grey, 2 grey + alpha, 3 RGB, 4 RGBA), any row filter; None for any
+    other image (16-bit, palette, interlaced, not a PNG)."""
     if not data.startswith(_PNG_SIGNATURE):
         return None
     pos, idat, header = len(_PNG_SIGNATURE), [], None
@@ -61,17 +100,28 @@ def _decode_plain_png(data: bytes) -> np.ndarray | None:
         elif kind == b"IEND":
             break
         pos += 12 + length
-    channels = {t: c for c, t in _COLOR_TYPE.items()}
-    if header is None or header[3] not in channels or header[2:] != (8, header[3], 0, 0, 0):
+    if header is None or header[3] not in _CHANNELS or header[2] != 8 or header[4:] != (0, 0, 0):
         return None
-    w, h, c = header[0], header[1], channels[header[3]]
+    w, h, c = header[0], header[1], _CHANNELS[header[3]]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if rows.size != h * (c * w + 1):
         return None
-    rows = rows.reshape(h, c * w + 1)
-    if rows[:, 0].any():
+    return _unfilter(rows.reshape(h, c * w + 1), c).reshape(h, w, c)
+
+
+def _decode_rgba(data: bytes) -> np.ndarray | None:
+    """(h, w, 4) RGBA of a PNG that decode_png reads, grey spread over R, G
+    and B and alpha 255 where the image has none (Pillow's
+    `convert("RGBA")`); None for any other image."""
+    img = decode_png(data)
+    if img is None:
         return None
-    return rows[:, 1:].reshape(h, w, c)
+    h, w, c = img.shape
+    if c == 4:
+        return img
+    alpha = img[:, :, c - 1:] if c in (2, 4) else np.full((h, w, 1), 255, np.uint8)
+    rgb = img[:, :, :3] if c == 3 else np.repeat(img[:, :, :1], 3, axis=2)
+    return np.concatenate([rgb, alpha], axis=2)
 
 
 def _decode_with_pillow(data: bytes, convert: str | None = "RGBA") -> np.ndarray:
@@ -110,7 +160,7 @@ class Texture:
         always 4-channel with alpha forced to 255 (stb fills alpha for 3-channel
         sources; the reference then overwrites alpha with 255 for all sources).
         """
-        rgba = _decode_plain_png(data)
+        rgba = _decode_rgba(data)
         if rgba is None:
             rgba = _decode_with_pillow(data)
         rgba = rgba.astype(np.uint32)  # (h, w, 4)

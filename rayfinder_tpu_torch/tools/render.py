@@ -2,14 +2,23 @@
 
     python -m rayfinder_tpu_torch.tools.render procedural:courtyard:26 -o out.png
     python -m rayfinder_tpu_torch.tools.render scene.glb --device cpu --engine plain
+    python -m torch.distributed.run --nproc-per-node 4 -m rayfinder_tpu_torch.tools.render \
+        procedural:courtyard:26 -o out.png --mesh 2x2 [--backend gloo|nccl]
 
 Counterpart of `rayfinder_tpu.tools.render`, the offline replacement for the
 reference's interactive `pt` viewer (src/pt/main.cpp): all ImGui parameters
 (spp, bounces, sun zenith/azimuth, turbidity, vfov, exposure stops, camera
 pose) become flags with the same defaults (main.cpp:46-60,
 fly_camera_controller.hpp:47-56). Renders through `render_image` on the
-card unless --device names another device. The multi-device render
-(--mesh) comes with the port of `parallel/sharding.py` and is not here yet.
+card unless --device names another device.
+
+With --mesh TILESxSAMPLES it renders across ranks through
+`parallel.sharding.render_image_sharded_regen`: run it under
+`torch.distributed.run` with TILES x SAMPLES processes; --spp must be a
+multiple of SAMPLES. --backend is the process group's backend: nccl (the
+default) for one rank per card, gloo for the CPU (--device cpu) or for
+several ranks that share a card. Each rank renders on cuda:{LOCAL_RANK %
+device count} (or the CPU), and rank 0 alone writes the PNG.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import time
 
 import numpy as np
 
-ENGINES = ["kernel", "kernel_split", "plain", "reference"]
+ENGINES = ["kernel", "kernel_split", "plain", "reference", "wavefront"]
 
 
 def auto_frame(scene, dtype=None):
@@ -84,9 +93,18 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--engine", choices=ENGINES, default="kernel",
         help="kernel: the CUDA kernels (default); kernel_split: the unfused loop over "
-        "the ray-query kernels; plain / reference: the torch walks",
+        "the ray-query kernels; plain / reference: the torch walks; wavefront: the "
+        "cluster engine in torch",
     )
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument(
+        "--mesh", default=None, metavar="TILESxSAMPLES",
+        help="render across ranks, e.g. 2x2 = 2-way pixel-tile sharding x 2-way sample "
+        "sharding (run under torch.distributed.run with TILES*SAMPLES processes; "
+        "spp must be a multiple of SAMPLES)",
+    )
+    parser.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                        help="process-group backend of --mesh (default nccl: one rank per card)")
     args = parser.parse_args(argv)
 
     from ..render.camera import create_camera
@@ -97,8 +115,15 @@ def main(argv=None) -> int:
     scene_arg = str(args.scene)
     if scene_arg.startswith("procedural:") and scene_arg.split(":")[1] != "courtyard":
         parser.error(f"unknown procedural scene {scene_arg.split(':')[1]!r}")
-    scene = load_scene(scene_arg, args.device)
-    print(f"scene: {scene.num_triangles} triangles, {scene.num_nodes} BVH nodes")
+    mesh = None
+    device = args.device
+    if args.mesh is not None:
+        mesh = _init_mesh(parser, args)
+        device = mesh.device
+    scene = load_scene(scene_arg, device)
+    leader = mesh is None or (mesh.tile_rank, mesh.sample_rank) == (0, 0)
+    if leader:
+        print(f"scene: {scene.num_triangles} triangles, {scene.num_nodes} BVH nodes")
 
     if args.camera_origin is None or args.camera_look_at is None:
         auto_origin, auto_look_at = auto_frame(scene)
@@ -118,23 +143,64 @@ def main(argv=None) -> int:
     sky = sky_state_from_ui(args.turbidity, tuple(args.albedo), args.sun_zenith, args.sun_azimuth)
 
     t0 = time.time()
-    img = render_image(
-        scene,
-        sky,
-        camera,
-        width=args.width,
-        height=args.height,
-        sampling=SamplingParams(args.spp, args.bounces),
-        exposure=2.0 ** -args.exposure_stops,
-        engine=args.engine,
-    )
+    if mesh is None:
+        img = render_image(
+            scene,
+            sky,
+            camera,
+            width=args.width,
+            height=args.height,
+            sampling=SamplingParams(args.spp, args.bounces),
+            exposure=2.0 ** -args.exposure_stops,
+            engine=args.engine,
+        )
+    else:
+        from ..parallel.sharding import render_image_sharded_regen
+
+        img = render_image_sharded_regen(
+            scene, sky, camera, mesh=mesh, width=args.width, height=args.height,
+            spp=args.spp, num_bounces=args.bounces, exposure=2.0 ** -args.exposure_stops,
+            engine=args.engine,
+        )
     dt = time.time() - t0
-    rays = args.width * args.height * args.spp * (2 * args.bounces)  # closest+shadow per bounce
-    print(f"rendered {args.width}x{args.height} @ {args.spp}spp in {dt:.1f}s "
-          f"(~{rays / dt / 1e6:.2f} Mrays/s)")
-    write_png(args.output, img)
-    print(f"wrote {args.output}")
+    if leader:
+        rays = args.width * args.height * args.spp * (2 * args.bounces)  # closest+shadow per bounce
+        print(f"rendered {args.width}x{args.height} @ {args.spp}spp in {dt:.1f}s "
+              f"(~{rays / dt / 1e6:.2f} Mrays/s)" + (f" on mesh {args.mesh}" if mesh else ""))
+        write_png(args.output, img)
+        print(f"wrote {args.output}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
+
+
+def _init_mesh(parser, args):
+    """The --mesh TILESxSAMPLES mesh over a process group that this process
+    joins (torch.distributed.run sets its rank and address), after checking
+    the world size and spp as the JAX tool does."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..parallel.sharding import check_backend, make_render_mesh
+
+    parts = args.mesh.lower().split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        parser.error(f"--mesh must be TILESxSAMPLES, got {args.mesh!r}")
+    tiles, samples = (int(p) for p in parts)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if tiles * samples != world:
+        parser.error(f"--mesh {args.mesh} needs {tiles * samples} processes, the world has "
+                     f"{world} (run under torch.distributed.run --nproc-per-node "
+                     f"{tiles * samples})")
+    if args.spp % samples:
+        parser.error(f"--spp {args.spp} must be a multiple of the samples axis {samples}")
+    device = None if args.device == "cuda" else args.device
+    check_backend(args.backend, args.device)
+    dist.init_process_group(args.backend, init_method="env://")
+    return make_render_mesh(sample_parallel=samples, device=device)
 
 
 if __name__ == "__main__":

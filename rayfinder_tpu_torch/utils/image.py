@@ -2,8 +2,10 @@
 
 Counterpart of `rayfinder_tpu.utils.image`. PNGs are written with the
 port's zlib coder (scene/texture.py `encode_png`: 8-bit RGB or RGBA, filter
-0 on every row), so the machine with the GPU, which has no Pillow, can write
-and read them; reading any other PNG needs Pillow and raises without it.
+0 on every row) and read with its decoder (`decode_png`: any 8-bit,
+non-interlaced grey or colour PNG), so the machine with the GPU, which has
+no Pillow, can write and read them; reading any other PNG needs Pillow and
+raises without it.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import pathlib
 
 import numpy as np
 
-from ..scene.texture import _decode_plain_png, _decode_with_pillow, encode_png
+from ..scene.texture import _decode_with_pillow, decode_png, encode_png
 
 
 def write_png(path, image: np.ndarray) -> None:
@@ -24,10 +26,13 @@ def write_png(path, image: np.ndarray) -> None:
 
 
 def read_png(path) -> np.ndarray:
-    """(H, W, C) uint8 pixels of a PNG file, C as stored."""
+    """(H, W, C) uint8 pixels of a PNG file, C as stored ((H, W) for grey, as
+    Pillow gives it)."""
     data = pathlib.Path(path).read_bytes()
-    image = _decode_plain_png(data)
-    return image if image is not None else _decode_with_pillow(data, convert=None)
+    image = decode_png(data)
+    if image is None:
+        return _decode_with_pillow(data, convert=None)
+    return image[:, :, 0] if image.shape[2] == 1 else image
 
 
 def rmse(a: np.ndarray, b: np.ndarray) -> float:

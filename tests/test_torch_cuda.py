@@ -522,7 +522,7 @@ def test_split_kernel_equals_plain_on_every_output(dev, scene8):
 
     disp, lanes = _path_state(scene8, dev)
     st = pt._initial_state(disp, lanes, lanes["u"].shape[0], dev)
-    lrad = disp.split_step(st, lanes, torch.zeros(lanes["u"].shape[0], 3, device=dev))
+    lrad, _ = disp.split_step(st, lanes, torch.zeros(lanes["u"].shape[0], 3, device=dev))
     assert bool((st["flag"] > 0).any())
     args = (*disp.pixel_args(lanes), T_MAX, st["sample"], st["bounce"], st["flag"],
             st["origin"], st["direction"], st["thr"], st["srad"], lrad, st["shadow_o"],
@@ -639,7 +639,7 @@ def test_shaded_kernel_matches_plain(dev, scene8, floor):
     disp, lanes = _path_state(scene8, dev)
     n = lanes["u"].shape[0]
     st = pt._initial_state(disp, lanes, n, dev)
-    lrad = disp.split_step(st, lanes, torch.zeros(n, 3, device=dev))
+    lrad, _ = disp.split_step(st, lanes, torch.zeros(n, 3, device=dev))
     assert bool((st["flag"] > 0).any())
     args = _shaded_args(disp, lanes, st, lrad, floor)
     before = trace_regen_shaded.launches
@@ -892,3 +892,76 @@ def test_focus_pick_goes_through_k1(dev, scene8):
     assert walk.intersect_closest_kernel.launches == before + 1
     cpu = controller()
     assert focus is not None and focus == pick_focus_distance(scene8.to("cpu"), cpu, 32.0, 24.0)
+
+
+@pytest.mark.parametrize("floor", [None, 1024])
+def test_sorted_loop_equals_unsorted_on_k3(dev, scene8, floor):
+    """The split route sorted every iteration (courtyard_scene(8) has 297
+    clusters) against unsorted, from a zero accumulator, on K3: equal bit for
+    bit with equal ray counts, K3 launched as often."""
+    from rayfinder_tpu_torch.ops.regen import trace_regen
+
+    kw = {} if floor is None else {"compact_floor": floor}
+    before = trace_regen.launches
+    unsorted, u_rays = _regen(scene8, dev, 128, 96, 8, inkernel=False, sort=False, **kw)
+    mid = trace_regen.launches
+    got, rays = _regen(scene8, dev, 128, 96, 8, inkernel=False, sort=True, **kw)
+    assert mid > before and trace_regen.launches - mid == mid - before
+    assert torch.equal(got, unsorted) and torch.equal(rays, u_rays)
+
+
+def test_one_by_one_nccl_mesh_equals_unsharded(dev, scene8):
+    """render_image_sharded_regen on a 1x1 nccl mesh (one process, the
+    default route per shard) equals render_image bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.parallel.sharding import make_render_mesh, render_image_sharded_regen
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import SamplingParams, render_image
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    w, h = 128, 96
+    cam = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    mesh = make_render_mesh(device=dev)
+    before = trace_regen_shaded.launches
+    sharded = render_image_sharded_regen(scene8, sky, cam, mesh=mesh, width=w, height=h, spp=8,
+                                         num_bounces=4, exposure=0.25)
+    dist.destroy_process_group()
+    assert trace_regen_shaded.launches == before + 1
+    single = render_image(scene8, sky, cam, width=w, height=h, sampling=SamplingParams(8, 4),
+                          exposure=0.25, samples_per_dispatch=8)
+    np.testing.assert_array_equal(sharded, single)
+
+
+@pytest.mark.parametrize("name", ["grouped_courtyard8", "flat_courtyard8"])
+def test_wavefront_engine_matches_k1_k2_on_the_goldens(dev, scene8, name):
+    """The wavefront engine on the card against K1/K2 on the goldens' rays:
+    equal t, tri and occlusion but for flat_courtyard8 ray 6, where the
+    stack walk's slab test prunes the nearer triangle by an ulp (the golden
+    and the wavefront find it), and no ray escalates."""
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.wavefront import (
+        intersect_any_wavefront, intersect_closest_wavefront,
+    )
+
+    g = np.load(GOLDENS / f"{name}.npz")
+    o = torch.from_numpy(g["origins"]).to(dev)
+    d = torch.from_numpy(g["directions"]).to(dev)
+    _, kt, ktri, _ = walk.intersect_closest_kernel(scene8, o, d, T_MAX)
+    _, t, tri, esc = intersect_closest_wavefront(scene8, o, d, T_MAX)
+    occ, esc_any = intersect_any_wavefront(scene8, o, d, T_MAX)
+    assert int(esc) == 0 and int(esc_any) == 0
+    differ = torch.nonzero((t != kt) | (tri != ktri))[:, 0].tolist()
+    assert differ == ([6] if name == "flat_courtyard8" else [])
+    np.testing.assert_array_equal(t.cpu().numpy(), g["t"])
+    np.testing.assert_array_equal(tri.cpu().numpy(), g["tri"])
+    assert torch.equal(occ, walk.intersect_any_kernel(scene8, o, d, T_MAX))

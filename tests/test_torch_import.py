@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax():
               "render.renderer", "tools.sky_demo", "utils.math", "utils.image",
               "render.deferred", "render.fly_camera", "utils.profiling", "sky.solar",
               "tools.viewer", "tools.render", "tools.turntable", "tools.bvh_visualizer",
-              "tools.pt_format_tool", "tools.textractor", "tools.sun_integrator"):
+              "tools.pt_format_tool", "tools.textractor", "tools.sun_integrator",
+              "render.wavefront", "parallel.sharding", "tools.blue_noise_tool",
+              "tools.make_test_glb", "tools.bake_assets"):
         assert f"rayfinder_tpu_torch.{m}" in mods
     code = (
         "import os, sys\n"

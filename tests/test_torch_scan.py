@@ -195,8 +195,7 @@ def test_unfused_loop_counts_the_default_routes_rays(courtyard):
 
 def test_engines_and_routes(courtyard, monkeypatch):
     port, _ = courtyard
-    with pytest.raises(ValueError, match="ROADMAP.md section 1, item 9"):
-        pt.get_engine("wavefront")
+    assert pt.get_engine("wavefront") == (pt._closest_wavefront, pt._any_wavefront)
     with pytest.raises(ValueError, match="unknown traversal engine"):
         pt.get_engine("pallas")
     assert pt.get_engine("kernel") == pt.get_engine("kernel_split")
@@ -215,7 +214,7 @@ def test_engines_and_routes(courtyard, monkeypatch):
         monkeypatch.setattr(pt, "SORT_THRESHOLD", threshold)
         for engine in ("kernel", "plain"):
             assert pt.pick_accumulator(port, engine) is pt.accumulate_samples_regen
-        for engine in ("kernel_split", "reference"):
+        for engine in ("kernel_split", "reference", "wavefront"):
             assert pt.pick_accumulator(port, engine) is unfused
 
 
