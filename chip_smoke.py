@@ -120,7 +120,30 @@ kernels from csrc/, then:
    (render_image_sharded) with "kernel" (K1/K2 per rank counted) and
    "wavefront", the two within RMSE 1e-3; (e) two nccl ranks on the card,
    refused, and
-   tools/render.py --mesh 2x1 --backend gloo under torch.distributed.run.
+   tools/render.py --mesh 2x1 --backend gloo under torch.distributed.run;
+12. (run after 11) the bench and the full-scale quality gate: (a)
+   `python -m rayfinder_tpu_torch.bench` in a subprocess (the textured
+   courtyard(26) through GLB -> .pt, 512x512, its Mrays/s,
+   time_to_1024spp_1080p_s measured at 1920x1080, quality_rmse against
+   tests/goldens/quality_courtyard_512x512_32spp.npz and the mt_waste
+   fields): its two JSON lines with every field, its rays beside the JAX
+   package's on the TPU; (b) the procedural textured courtyard(26), from
+   which the golden was baked, and the bench's .pt one through
+   quality_image on the default route against the golden, and the
+   procedural one on the unfused loop over K1/K2, by
+   tools/make_quality_goldens.py quality_gate (RMSE < 1e-3 off the pixels
+   whose middle ray hits a face on a texel edge, the +x wall; there the
+   mean difference within its standard errors and the RMSE within JAX's
+   own on the CPU; the RMSE over every pixel printed beside), the
+   images written to chiprun_out/quality_courtyard_port.npz, and two
+   negative controls: the procedural scene with the wall's u moved off the
+   edge to either side (one texel column on every hit) must miss the gate;
+   (c) K1 and K2 against brute_force_closest_hit on every 8th of phase 2's
+   rays and on flat_courtyard8: equal hits and occlusion, t and tri equal
+   but on equal-t ties and rays where brute force is nearer by at most 2
+   ulp (the slab test's prune), counted. Then the gate: the bench exits 0
+   with quality_ok, both default-route images of (b) pass it, the .pt
+   one's numbers the bench's.
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
@@ -1649,17 +1672,17 @@ def _renderer_check(scene, camera, dev, card: str) -> dict:
             "accum_equal_one_dispatch": same_accum}
 
 
-def _full_hd(scene, sky, tile, dev, card: str) -> dict:
+def _full_hd(scene, sky, tile, card: str) -> dict:
     """Phase 9 at 1920x1080, 4 bounces: render_image_tiled (scan form, K1/K2,
     512x512 windows) against render_image (default route, K4), 4 spp, RMSE
     < 1e-3; then the default route's seconds per sample from a timed
     32-sample dispatch after a warm-up one, and time_to_1024spp_1080p_s from
-    it."""
-    import torch
-
+    it, as the bench measures them (rayfinder_tpu_torch/bench.py
+    time_to_1024spp)."""
+    from rayfinder_tpu_torch.bench import time_to_1024spp
     from rayfinder_tpu_torch.render.camera import create_camera
     from rayfinder_tpu_torch.render.pathtracer import (
-        SamplingParams, accumulate_samples_regen, render_image, render_image_tiled,
+        SamplingParams, render_image, render_image_tiled,
     )
 
     w, h = 1920, 1080
@@ -1671,24 +1694,20 @@ def _full_hd(scene, sky, tile, dev, card: str) -> dict:
     tiled, tiled_s = _timed(lambda: render_image_tiled(scene, sky, cam, engine="kernel", **kw))
     launches = _launch_counts()
     err = _rmse(tiled, whole)
-    dkw = dict(width=w, height=h, num_bounces=SLICE["num_bounces"], spp=1024, num_frames=32,
-               count_rays=True)
-    warm, _ = accumulate_samples_regen(scene, sky, cam, tile, 0,
-                                       torch.zeros(w * h, 3, device=dev), **dkw)
-    (_, rays), secs = _timed(lambda: accumulate_samples_regen(scene, sky, cam, tile, 32, warm, **dkw))
-    per_sample = secs / 32
+    t1024 = time_to_1024spp(scene, sky, tile, num_bounces=SLICE["num_bounces"])
+    secs, per_sample, rays = t1024["seconds"], t1024["seconds_per_sample"], t1024["rays"]
     print(f"1920x1080, 4 spp: render_image_tiled (scan form, 512x512 windows) {tiled_s:.3f} s, "
           f"K1/K2 launches {launches}; render_image (default route) {whole_s:.4f} s; RMSE "
           f"{err:.3e} [{card}]", flush=True)
-    print(f"1920x1080 default route: a 32-sample dispatch {secs:.4f} s, {per_sample:.6f} s per "
-          f"sample, {sum(rays.tolist()) / secs / 1e6:.3f} Mrays/s (rays {rays.tolist()}); "
-          f"time_to_1024spp_1080p_s {1024 * per_sample:.3f} [{card}]", flush=True)
+    print(f"1920x1080 default route (bench.time_to_1024spp): a 32-sample dispatch {secs:.4f} s, "
+          f"{per_sample:.6f} s per sample, {sum(rays) / secs / 1e6:.3f} Mrays/s (rays {rays}); "
+          f"time_to_1024spp_1080p_s {t1024['time_to_1024spp_s']:.3f} [{card}]", flush=True)
     _require(err < 1e-3, f"tiled 1080p differs from untiled: RMSE {err:.3e}")
     _require(launches["K1"] == launches["K2"] == 12 * 4 * SLICE["num_bounces"],
              f"the tiled 1080p render launched {launches}")
     return {"tiled_seconds": tiled_s, "untiled_seconds": whole_s, "rmse": err,
             "launches_tiled": launches, "seconds_per_sample": per_sample,
-            "time_to_1024spp_1080p_s": 1024 * per_sample, "rays_32": rays.tolist(),
+            "time_to_1024spp_1080p_s": t1024["time_to_1024spp_s"], "rays_32": rays,
             "card": card}
 
 # Phase 10: the deferred renderer and the interactive layer over K1/K2.
@@ -2635,6 +2654,207 @@ def _phase11(scene26, sky, camera, tile, dev, card: str) -> dict:
     return numbers
 
 
+# Phase 12: the bench, the full-scale quality gate, K1 against brute force.
+BENCH_TIMEOUT_S = 600
+BENCH_FIELDS = ("value", "time_to_1024spp_1080p_s", "quality_rmse", "quality_ok",
+                "quality_rmse_off_wrap", "wrap_pixels", "quality_rmse_wrap", "wrap_mean_diff",
+                "wrap_mean_se",
+                *(f"mt_waste_{lane}{pop}" for lane in ("", "lane_")
+                  for pop in ("primary", "bounce1", "bounce2")))
+# The negative controls of 12 (b): the texel-edge faces' u moved off the edge
+# to each side, so every hit on them reads one texel column.
+WRAP_MOVED_U = (7.999, 8.001)
+# K1 against brute force on every BRUTE_FORCE_STRIDE-th of phase 2's rays.
+BRUTE_FORCE_STRIDE = 8
+# The most ulps of t by which brute force may hit nearer than K1: the slab
+# test prunes the nearer leaf box by an ulp (flat_courtyard8 ray 6).
+BRUTE_FORCE_ULPS = 2
+
+
+def _bench_run(card: str) -> dict:
+    """12 (a): `python -m rayfinder_tpu_torch.bench` in a subprocess, as a
+    user runs it: its two JSON lines, the last with every field. Prints the
+    line with the card, and the timed dispatch's rays beside the JAX
+    package's on the TPU. Its exit code and quality_ok are required at the
+    end of the phase (_phase12), after (b) and (c) have printed theirs."""
+    import torch
+
+    from rayfinder_tpu_torch.bench import JAX_TPU_RAYS
+
+    torch.cuda.empty_cache()  # the bench's process allocates on the same card
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "rayfinder_tpu_torch.bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in done.stderr.splitlines()[-20:]:
+        print(f"  bench: {line}", flush=True)
+    lines = [json.loads(x) for x in done.stdout.splitlines() if x.startswith("{")]
+    _require(len(lines) == 2, f"the bench printed {len(lines)} JSON lines, not 2 (exit "
+                              f"{done.returncode})")
+    line = lines[-1]
+    print(f"bench line (exit {done.returncode}, {secs:.1f} s): {json.dumps(line)} [{card}]",
+          flush=True)
+    missing = [k for k in BENCH_FIELDS if k not in line]
+    _require(not missing, f"the bench's last line lacks {missing}")
+    print(f"bench rays (closest, shadow): {line['rays']}; JAX on the TPU, same .pt scene and "
+          f"window: {list(JAX_TPU_RAYS)}", flush=True)
+    return {**line, "exit": done.returncode, "seconds": secs}
+
+
+def _wrap_moved(scene, u: float):
+    """The scene with the u of every texel_wrap_triangles face set to u
+    (tri_uvs and the shading rows the kernels read)."""
+    import dataclasses
+
+    from rayfinder_tpu_torch.tools.make_quality_goldens import texel_wrap_triangles
+
+    wrap = texel_wrap_triangles(scene)
+    uvs, attrs = scene.tri_uvs.clone(), scene.tri_attrs.clone()
+    uvs[wrap, :, 0] = u
+    attrs[wrap, 18:24:2] = u
+    return dataclasses.replace(scene, tri_uvs=uvs, tri_attrs=attrs)
+
+
+def _quality_gate(dev, card: str) -> dict:
+    """12 (b): the full-scale quality gate on the card, the courtyard case
+    of tests/test_quality_gate.py: the procedural courtyard_scene(26,
+    textured=True), from which the golden was baked, and the bench's
+    textured .pt courtyard through quality_image on the default route,
+    held by quality_gate (required in _phase12); beside them the procedural
+    scene on the unfused loop over K1/K2 ("kernel_split", torch shade), and
+    the negative controls (WRAP_MOVED_U), which must miss the gate. The
+    images are written to chiprun_out/quality_courtyard_port.npz
+    (tests/torch_quality_witness.py reads them)."""
+    import numpy as np
+
+    from rayfinder_tpu_torch.prof.scenes import courtyard_pt_scene
+    from rayfinder_tpu_torch.tools.make_quality_goldens import (
+        courtyard_config, gate_failures, golden_path, quality_gate, quality_image,
+        texel_wrap_pixels,
+    )
+
+    scene, sky, camera, kw = courtyard_config(dev)
+    path = golden_path("courtyard", kw["width"], kw["height"], 2 * kw["num_frames"])
+    pt_scene = courtyard_pt_scene(26, device=dev, textured=True)[0]
+    wrap, secs = _timed(lambda: texel_wrap_pixels(scene, camera, kw["width"], kw["height"]))
+    pt_wrap = texel_wrap_pixels(pt_scene, camera, kw["width"], kw["height"])
+    print(f"texel-edge pixels (middle ray's first hit on the +x wall, brute force): "
+          f"{int(wrap.sum())} in {secs:.3f} s; the .pt scene's equal: "
+          f"{bool(np.array_equal(wrap, pt_wrap))} [{card}]", flush=True)
+    _require(np.array_equal(wrap, pt_wrap), "the .pt scene's texel-edge pixels differ")
+    out, images = {"wrap_seconds": secs}, {}
+    runs = [("procedural", scene, "kernel"), ("pt", pt_scene, "kernel"),
+            ("procedural_kernel_split", scene, "kernel_split")]
+    runs += [(f"wall_u_{u}", _wrap_moved(scene, u), "kernel") for u in WRAP_MOVED_U]
+    for label, sc, engine in runs:
+        img, secs = _timed(lambda: quality_image(sc, sky, camera, engine=engine, **kw))
+        gate = quality_gate(img, path, wrap)
+        out[label] = {**gate, "seconds": secs}
+        print(f"quality gate, {label} courtyard_scene(26, textured=True), 512x512, 32 spp, "
+              f"engine {engine}: {'passed' if gate['quality_ok'] else 'missed'} "
+              f"{gate_failures(gate)}; RMSE over every pixel {gate['quality_rmse']:.7f}, off "
+              f"the {gate['wrap_pixels']} texel-edge pixels {gate['quality_rmse_off_wrap']:.7f}, "
+              f"on them {gate['quality_rmse_wrap']:.7f}, mean difference there "
+              f"{[f'{x:.3e}' for x in gate['wrap_mean_diff']]} (standard error "
+              f"{[f'{x:.3e}' for x in gate['wrap_mean_se']]}); rendered in {secs:.3f} s "
+              f"[{card}]", flush=True)
+        images[label] = img
+    out["pt_equals_procedural"] = bool(np.array_equal(images["pt"], images["procedural"]))
+    keep = ROOT / "chiprun_out"
+    keep.mkdir(exist_ok=True)
+    np.savez_compressed(keep / "quality_courtyard_port.npz",
+                        **{k: images[k] for k, _, _ in runs[:3]})
+    return out
+
+
+def _brute_force_categories(hit, t, tri, occ, bhit, bt, btri) -> dict:
+    """Where K1 (hit, t, tri) and K2 (occ) differ from brute force (bhit, bt,
+    btri): ties (equal t, another triangle), prunes (brute force nearer by at
+    most BRUTE_FORCE_ULPS ulp of t), and the rays of any other difference,
+    a hit or an occlusion that differs included."""
+    import torch
+
+    inf = torch.tensor(float("inf"), device=t.device)
+    near = bt
+    for _ in range(BRUTE_FORCE_ULPS):
+        near = torch.nextafter(near, inf)
+    differ = (t != bt) | (tri != btri)
+    tie = differ & (t == bt)
+    prune = differ & (bt < t) & (t <= near)
+    other = (differ & ~tie & ~prune) | (hit != bhit) | (occ != bhit)
+    return {"rays": int(t.shape[0]), "differ": int(differ.sum()), "tie": int(tie.sum()),
+            "prune": int(prune.sum()), "other": torch.nonzero(other)[:, 0].tolist()}
+
+
+def _brute_force_check(scene26, scene8, camera, dev, card: str) -> dict:
+    """12 (c): K1 and K2 against brute_force_closest_hit on the card, on
+    every 8th of phase 2's 262,144 rays over the slice's scene and on every
+    ray of flat_courtyard8 over courtyard_scene(8): equal hits and
+    occlusion, and t/tri equal but on ties and ulp prunes."""
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
+    from rayfinder_tpu_torch.render.intersect import T_MAX, brute_force_closest_hit
+
+    o, d = _rays(camera, 131072, 131072, seed=0, dev=dev)
+    g = np.load(GOLDENS / "flat_courtyard8.npz")
+    sets = {
+        f"courtyard26, every {BRUTE_FORCE_STRIDE}th of phase 2's rays": (
+            scene26, o[::BRUTE_FORCE_STRIDE].contiguous(), d[::BRUTE_FORCE_STRIDE].contiguous()),
+        "flat_courtyard8": (scene8, torch.from_numpy(g["origins"]).to(dev),
+                            torch.from_numpy(g["directions"]).to(dev)),
+    }
+    out = {}
+    for label, (scene, o, d) in sets.items():
+        (hit, t, tri, _), k_secs = _timed(lambda: intersect_closest_kernel(scene, o, d, T_MAX))
+        occ = intersect_any_kernel(scene, o, d, T_MAX)
+        (bhit, bt, btri), b_secs = _timed(
+            lambda: brute_force_closest_hit(o, d, scene.tri_positions, T_MAX))
+        counts = _brute_force_categories(hit, t, tri, occ, bhit, bt, btri)
+        counts.update(seconds=b_secs, k1_seconds=k_secs, triangles=scene.num_triangles)
+        print(f"K1/K2 against brute force, {label}: {counts['rays']} rays x "
+              f"{scene.num_triangles} triangles in {b_secs:.3f} s; differ {counts['differ']}: "
+              f"ties {counts['tie']}, brute force nearer by <= {BRUTE_FORCE_ULPS} ulp "
+              f"{counts['prune']}, other {counts['other'][:20]} [{card}]", flush=True)
+        _require(not counts["other"], f"{label}: K1/K2 differ from brute force on rays "
+                                      f"{counts['other'][:20]}")
+        out[label] = counts
+    return out
+
+
+def _phase12(scene26, scene8, camera, dev, card: str) -> dict:
+    """(a)-(c), then the gate: the bench exits 0 with quality_ok, both
+    default-route images of (b) pass quality_gate, the .pt one's numbers
+    the bench's, and the negative controls miss it."""
+    t0 = time.perf_counter()
+    bench = _bench_run(card)
+    numbers = {
+        "bench": bench,
+        "quality_gate": _quality_gate(dev, card),
+        "brute_force": _brute_force_check(scene26, scene8, camera, dev, card),
+    }
+    numbers["seconds"] = time.perf_counter() - t0
+    gate = numbers["quality_gate"]
+    print(f"phase 12: {numbers['seconds']:.1f} s; full-scale RMSE over every pixel (off the "
+          f"texel-edge pixels): textured .pt courtyard (bench) {bench['quality_rmse']:.7f} "
+          f"({bench['quality_rmse_off_wrap']:.7f}), procedural courtyard "
+          f"{gate['procedural']['quality_rmse']:.7f} "
+          f"({gate['procedural']['quality_rmse_off_wrap']:.7f}) [{card}]", flush=True)
+    _require(bench["exit"] == 0 and bench["quality_ok"],
+             f"the bench exited {bench['exit']} with quality_ok {bench['quality_ok']}")
+    for key in ("quality_rmse", "quality_rmse_off_wrap", "wrap_pixels", "quality_rmse_wrap"):
+        _require(gate["pt"][key] == bench[key],
+                 f"the bench's {key} {bench[key]} is not its image's {gate['pt'][key]}")
+    for label in ("procedural", "pt"):
+        _require(gate[label]["quality_ok"], f"full-scale quality gate, {label} courtyard: "
+                                            f"{gate[label]}")
+    for u in WRAP_MOVED_U:
+        _require(not gate[f"wall_u_{u}"]["quality_ok"],
+                 f"the gate passed the wall read at u = {u} on every hit")
+    return numbers
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -2782,7 +3002,7 @@ def main(argv=None) -> int:
             "queries": _scan_query_check(scene26, sky, camera, tile, dev, card),
             "slice": _scan_slice(scene26, sky, camera, tile, dev, card),
             "renderer": _renderer_check(scene26, camera, dev, card),
-            "full_hd": _full_hd(scene26, sky, tile, dev, card),
+            "full_hd": _full_hd(scene26, sky, tile, card),
         }
         scan_numbers["seconds"] = time.perf_counter() - t0
         print(f"phase 9: {scan_numbers['seconds']:.1f} s", flush=True)
@@ -2868,6 +3088,13 @@ def main(argv=None) -> int:
             f"{QUERY_WINDOW} lanes": sharded["hd"]["k4_windows"]["max_abs_err"],
         }
 
+    phase12 = {}
+    if full:
+        # --- 12. the bench, the full-scale quality gate, K1 against brute force
+        # The bench runs as a user runs it, in its own process; its launches
+        # are not counted here.
+        phase12 = _phase12(scene26, scene8, camera, dev, card)
+
     kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s from the start of the build",
           flush=True)
@@ -2890,6 +3117,7 @@ def main(argv=None) -> int:
         "scan": scan_numbers,
         "deferred": deferred_numbers,
         "phase11": phase11,
+        "phase12": phase12,
         "l2_bytes_per_s": L2_RATE["bytes_per_s"],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,10 @@ its mesh names: `cuda:{LOCAL_RANK % device_count}` unless the caller passes
 
 Engines: "kernel" (the JAX "pallas": the fused loop per shard for the
 `_regen` pair, K1/K2 for the scan form), "plain", "kernel_split",
-"reference", "wavefront", with the JAX defaults: "wavefront" for
-render_step_sharded and render_image_sharded, "kernel" for the `_regen`
-pair.
+"reference", "wavefront". "kernel" is every function's default. The JAX
+package's scan form defaults to "wavefront", its cluster engine; here that
+engine is torch code, far slower than K1/K2 per ray query (PERF.md §5, H100
+80GB HBM3 at 700 W), so it runs only when named.
 """
 
 from __future__ import annotations
@@ -235,7 +236,7 @@ def render_step_sharded(
     height: int,
     num_bounces: int,
     spp: int,
-    engine: str = "wavefront",
+    engine: str = "kernel",
 ):
     """One sharded progressive step of the scan form: adds samples_axis
     samples per pixel, sample rank r tracing frame frame_base + r. Pixels
@@ -353,7 +354,7 @@ def render_image_sharded(
     spp: int,
     num_bounces: int,
     exposure: float = 1.0,
-    engine: str = "wavefront",
+    engine: str = "kernel",
 ) -> np.ndarray:
     """A full sharded render through the scan form: progressive steps of
     samples_axis samples (render_step_sharded), running-mean estimator,

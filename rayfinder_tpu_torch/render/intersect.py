@@ -122,3 +122,35 @@ def ray_aabb_entry(origin, inv_dir, dir_neg, aabb_min, aabb_max):
     every t_max (the packed walk's stack key, csrc/traverse2.cuh)."""
     tmin, tmax, fail_xy, fail_z = _slab_terms(origin, inv_dir, dir_neg, aabb_min, aabb_max)
     return torch.where(~fail_xy & ~fail_z & (tmax > 0.0), tmin, torch.inf)
+
+
+# Most ray-triangle pairs that brute_force_closest_hit evaluates at once: a
+# chunk of rays x every triangle. Each (rays, triangles, 3) intermediate of
+# a chunk is then at most 768 MiB.
+BRUTE_FORCE_PAIRS = 1 << 26
+
+
+def brute_force_closest_hit(origin, direction, triangles, t_max):
+    """All-triangles closest hit: the oracle of the BVH traversal tests
+    (counterpart of `rayfinder_tpu.render.intersect.brute_force_closest_hit`,
+    pattern of src/tests/bvh.cpp:34-101).
+
+    origin/direction: (R, 3); triangles: (T, 3, 3); t_max: a scalar.
+    Returns (hit bool, t f32, tri_idx i32), each (R,): t_max and -1 where
+    nothing is hit. On equal t the lowest triangle index wins (argmin's first
+    minimum). Rays go in chunks of at most BRUTE_FORCE_PAIRS // T rays; each
+    ray's arithmetic is elementwise, so the result is the one-shot
+    evaluation's bit for bit."""
+    chunk = max(1, BRUTE_FORCE_PAIRS // max(triangles.shape[0], 1))
+    v0, v1, v2 = (triangles[None, :, k] for k in range(3))
+    ts, tris = [], []
+    for s in range(0, max(origin.shape[0], 1), chunk):
+        hit, t, _, _ = ray_triangle(origin[s:s + chunk, None], direction[s:s + chunk, None],
+                                    v0, v1, v2, t_max)
+        t = torch.where(hit, t, torch.inf)
+        tri = torch.argmin(t, dim=-1)
+        ts.append(torch.gather(t, 1, tri[:, None])[:, 0])
+        tris.append(tri)
+    best_t, tri = torch.cat(ts), torch.cat(tris)
+    hit = torch.isfinite(best_t)
+    return hit, torch.where(hit, best_t, t_max), torch.where(hit, tri, -1).to(torch.int32)

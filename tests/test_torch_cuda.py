@@ -8,6 +8,7 @@ On the GPU machine:
 (--noconftest: tests/conftest.py imports jax, which that machine lacks.)
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -965,3 +966,76 @@ def test_wavefront_engine_matches_k1_k2_on_the_goldens(dev, scene8, name):
     np.testing.assert_array_equal(t.cpu().numpy(), g["t"])
     np.testing.assert_array_equal(tri.cpu().numpy(), g["tri"])
     assert torch.equal(occ, walk.intersect_any_kernel(scene8, o, d, T_MAX))
+
+
+def test_full_scale_quality_gate_on_the_default_route(dev):
+    """The courtyard case of tests/test_quality_gate.py test_full_scale_rmse
+    on the card: the procedural courtyard_scene(26, textured=True) at
+    512x512, two 16-sample dispatches on the default route (one K4 call
+    each), tonemapped, against the JAX wavefront engine's golden by
+    tools/make_quality_goldens.py quality_gate: RMSE < 1e-3 off the pixels
+    whose middle ray hits the +x wall (a face on a texel edge); on them the
+    mean difference within its standard errors and the RMSE within JAX's
+    own on the CPU."""
+    from rayfinder_tpu_torch.ops.regen_shaded import trace_regen_shaded
+    from rayfinder_tpu_torch.tools.make_quality_goldens import (
+        QUALITY_RMSE_BUDGET, courtyard_config, gate_failures, golden_path, quality_gate,
+        quality_image, texel_wrap_pixels,
+    )
+
+    scene, sky, camera, kw = courtyard_config(dev)
+    before = trace_regen_shaded.launches
+    img = quality_image(scene, sky, camera, engine="kernel", **kw)
+    assert trace_regen_shaded.launches == before + 2
+    wrap = texel_wrap_pixels(scene, camera, kw["width"], kw["height"])
+    assert 0 < wrap.sum() < wrap.size // 10
+    gate = quality_gate(img, golden_path("courtyard", kw["width"], kw["height"],
+                                         2 * kw["num_frames"]), wrap)
+    assert gate["quality_rmse_off_wrap"] < QUALITY_RMSE_BUDGET
+    assert gate["quality_ok"], f"courtyard drifted: {gate_failures(gate)}"
+
+
+@pytest.mark.parametrize("u", [7.999, 8.001])
+def test_full_scale_quality_gate_misses_one_texel_column_on_the_wall(dev, u):
+    """The gate's negative control: with the +x wall's u moved off the
+    texel edge, every hit on it reads one texel column (191 below 8, 0
+    above), and the image misses the gate."""
+    from rayfinder_tpu_torch.tools.make_quality_goldens import (
+        courtyard_config, golden_path, quality_gate, quality_image, texel_wrap_pixels,
+        texel_wrap_triangles,
+    )
+
+    scene, sky, camera, kw = courtyard_config(dev)
+    wrap = texel_wrap_pixels(scene, camera, kw["width"], kw["height"])
+    faces = texel_wrap_triangles(scene)
+    uvs, attrs = scene.tri_uvs.clone(), scene.tri_attrs.clone()
+    uvs[faces, :, 0] = u
+    attrs[faces, 18:24:2] = u
+    moved = dataclasses.replace(scene, tri_uvs=uvs, tri_attrs=attrs)
+    img = quality_image(moved, sky, camera, engine="kernel", **kw)
+    gate = quality_gate(img, golden_path("courtyard", kw["width"], kw["height"],
+                                         2 * kw["num_frames"]), wrap)
+    assert not gate["quality_ok"], gate
+
+
+def test_walk_kernels_match_brute_force_on_flat_courtyard8(dev, scene8):
+    """K1 and K2 against the port's brute_force_closest_hit on the card: hit
+    and occlusion equal on every ray, t and tri on every ray but ray 6, where
+    the slab test prunes the nearer leaf box by an ulp and K1 lands on a
+    triangle at most 2 ulp further away. Brute force equals the golden."""
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render.intersect import T_MAX, brute_force_closest_hit
+
+    g = np.load(GOLDENS / "flat_courtyard8.npz")
+    o = torch.from_numpy(g["origins"]).to(dev)
+    d = torch.from_numpy(g["directions"]).to(dev)
+    hit, t, tri, _ = walk.intersect_closest_kernel(scene8, o, d, T_MAX)
+    occ = walk.intersect_any_kernel(scene8, o, d, T_MAX)
+    bhit, bt, btri = brute_force_closest_hit(o, d, scene8.tri_positions, T_MAX)
+    np.testing.assert_array_equal(bt.cpu().numpy(), g["t"])
+    np.testing.assert_array_equal(btri.cpu().numpy(), g["tri"])
+    assert torch.equal(hit, bhit) and torch.equal(occ, bhit)
+    differ = torch.nonzero((t != bt) | (tri != btri))[:, 0].tolist()
+    assert differ == [6]
+    inf = torch.tensor(float("inf"), device=dev)
+    assert bt[6] < t[6] <= torch.nextafter(torch.nextafter(bt[6], inf), inf)

@@ -10,6 +10,7 @@ regeneration loop against JAX `engine="reference"` at the regen budget of
 tests/test_pallas_regen.py (rtol 2e-4 / atol 1e-5).
 """
 
+import inspect
 import os
 import pathlib
 import subprocess
@@ -165,6 +166,16 @@ def test_rank_renders_only_on_its_device():
             step(scene, sky_state_from_ui(*SKY), create_camera(*CAM), tile, 0,
                  torch.zeros(4, 3, device="meta"), mesh=mesh, width=2, height=2, num_bounces=1,
                  spp=1, **kw)
+
+
+def test_every_sharded_render_defaults_to_the_kernels():
+    """"kernel" is the default of the scan form's pair too, where the JAX
+    package defaults to "wavefront"; the tests above name every engine."""
+    for fn in (sharding.render_step_sharded, sharding.render_image_sharded,
+               sharding.render_step_sharded_regen, sharding.render_image_sharded_regen):
+        assert inspect.signature(fn).parameters["engine"].default == "kernel", fn.__name__
+    assert inspect.signature(jax_sharding.render_image_sharded).parameters[
+        "engine"].default == "wavefront"
 
 
 def test_make_render_mesh_needs_a_process_group():

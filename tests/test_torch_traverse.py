@@ -16,13 +16,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rayfinder_tpu.render.intersect import brute_force_closest_hit
+from rayfinder_tpu.render.intersect import brute_force_closest_hit as jax_brute_force
 from rayfinder_tpu.render.scene import build_device_scene as jax_build
 from rayfinder_tpu.render.traverse import intersect_any as jax_any
 from rayfinder_tpu.render.traverse import intersect_closest as jax_closest
 from rayfinder_tpu.scene.procedural import courtyard_scene
 from rayfinder_tpu_torch.render.camera import create_camera, primary_ray
-from rayfinder_tpu_torch.render.intersect import T_MAX, ray_triangle
+from rayfinder_tpu_torch.render.intersect import T_MAX, brute_force_closest_hit
 from rayfinder_tpu_torch.render.scene import build_device_scene
 from rayfinder_tpu_torch.render.traverse import intersect_any, intersect_closest
 from rayfinder_tpu_torch.ops.walk import (
@@ -55,12 +55,10 @@ def _rays(n_camera=2048, n_random=2048, seed=11):
 
 
 def _brute_force_torch(scene, o, d):
-    """Closest accepted triangle over every triangle, with the port's test."""
-    v = scene.tri_positions
-    hit, t, _, _ = ray_triangle(o[None], d[None], v[:, 0], v[:, 1], v[:, 2], T_MAX)
-    t = torch.where(hit, t, torch.inf)
-    i = int(torch.argmin(t))
-    return (i, float(t[i])) if hit.any() else (-1, T_MAX)
+    """Closest accepted triangle over every triangle, with the port's test
+    (the port's brute_force_closest_hit)."""
+    _, t, tri = brute_force_closest_hit(o[None], d[None], scene.tri_positions, T_MAX)
+    return int(tri[0]), float(t[0])
 
 
 def test_walk_matches_jax_reference(scenes):
@@ -76,7 +74,7 @@ def test_walk_matches_jax_reference(scenes):
 
     differ = np.nonzero((tri != jtri) | (t != jt) | (visits != jvisits) | (occ != jocc))[0]
     assert len(differ) <= 2, f"rays {differ.tolist()} differ from the JAX walk"
-    brute_jax = jax.jit(brute_force_closest_hit)
+    brute_jax = jax.jit(jax_brute_force)
     for i in differ:
         assert tri[i] >= 0 and jtri[i] >= 0 and occ[i] == jocc[i], i
         assert _brute_force_torch(port, torch.from_numpy(o[i]), torch.from_numpy(d[i])) == (
