@@ -74,7 +74,10 @@ kernels from csrc/, then:
    route's, and (untextured) the tiled scan form through the plain versions
    equal to it bit for bit; K1/K2 held to
    their plain versions exactly on the rays and shadow rays of bounce 2 of
-   the scan form over the slice, parked lanes included; on the slice, the
+   the scan form over the slice, parked lanes included; one sorted
+   trace_radiance(decorrelate=True) over the slice's primary rays through
+   K1/K2 equal bit for bit to it through their plain versions, with the
+   bounce noise made and sorted in the JAX package's order; on the slice, the
    scan form (accumulate_samples: 64 K1 and 64 K2 per 16-sample dispatch,
    within RMSE 1e-3 of the default route) and the unfused loop (exactly
    11,611,591 / 8,839,510 rays), timed; the Renderer (three render(16):
@@ -1550,6 +1553,51 @@ def _scan_query_check(scene, sky, camera, tile, dev, card: str) -> dict:
             "k1_bound_ms": k1_bound["bound_ms"], "k2_bound_ms": k2_bound["bound_ms"]}
 
 
+def _scan_decorrelated(scene, sky, camera, tile, dev, card: str) -> dict:
+    """One trace_radiance(decorrelate=True) over the slice's 262,144
+    primary rays of sample 0, 4 bounces, on a scene above SORT_THRESHOLD
+    clusters, so the lanes are sorted before bounces 2-4 and each bounce's
+    noise is the base noise in pixel order shifted, then sorted with the
+    lanes (the JAX package's order). Through K1/K2 (engine "kernel") and
+    through their plain versions on the same inputs: the radiance must be
+    equal bit for bit, as the scan form's other kernel-against-plain checks
+    are; K1 and K2 launch once per bounce."""
+    import torch
+
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.camera import generate_camera_ray_lens
+    from rayfinder_tpu_torch.render.rng import animated_blue_noise
+
+    w, h, bounces = SLICE["width"], SLICE["height"], SLICE["num_bounces"]
+    _require(scene.num_clusters > pt.SORT_THRESHOLD,
+             f"the slice's {scene.num_clusters} clusters do not pass SORT_THRESHOLD")
+    ys, xs = pt._pixels(w, h, dev)
+    noise = animated_blue_noise(ys, xs, 0, SLICE["spp"], tile=tile)
+    u = (xs.to(torch.float32) + 0.5) / w + noise[:, 0] / w
+    v = (1.0 - (ys.to(torch.float32) + 0.5) / h) + noise[:, 1] / h
+    o, d = generate_camera_ray_lens(camera, noise, u, v)
+    rad, seconds, launches = {}, {}, {}
+    for engine in ("kernel", "plain"):
+        _zero_launches()
+        rad[engine], seconds[engine] = _timed(lambda: pt.trace_radiance(
+            scene, sky, o, d, noise, bounces, engine=engine, decorrelate=True))
+        launches[engine] = _launch_counts()
+    err = float((rad["kernel"] - rad["plain"]).abs().max())
+    same = bool(torch.equal(rad["kernel"], rad["plain"]))
+    print(f"scan form trace_radiance(decorrelate=True) over the slice: {o.shape[0]} rays, "
+          f"{bounces} bounces, {scene.num_clusters} clusters (sorted); K1/K2 "
+          f"{seconds['kernel']:.4f} s (launches {launches['kernel']}), plain "
+          f"{seconds['plain']:.4f} s; kernel == plain bit for bit {same}, max |diff| {err:.3e} "
+          f"[{card}]", flush=True)
+    _require(bool(torch.isfinite(rad["kernel"]).all()) and float(rad["kernel"].sum()) > 0.0,
+             "the decorrelated radiance is not finite and non-zero")
+    _require(same, f"decorrelated scan form: K1/K2 differ from plain, max |diff| {err:.3e}")
+    _require(launches["kernel"] == {"K1": bounces, "K2": bounces}
+             and launches["plain"] == {"K1": 0, "K2": 0},
+             f"decorrelated scan form launched {launches}")
+    return {"rays": o.shape[0], "seconds": seconds, "launches": launches, "max_abs_err": err}
+
+
 def _scan_slice(scene, sky, camera, tile, dev, card: str) -> dict:
     """Phase 9 on the slice (courtyard_scene(26), 512x512, 4 bounces): the
     default route, the scan form (accumulate_samples, engine "kernel") and
@@ -3000,6 +3048,7 @@ def main(argv=None) -> int:
             "textured_render": _scan_renders(scene8t, sky, tile, dev, "textured render", np.load(
                 GOLDENS / "courtyard_textured_128x96_8spp.npz"), card, plain=False),
             "queries": _scan_query_check(scene26, sky, camera, tile, dev, card),
+            "decorrelated": _scan_decorrelated(scene26, sky, camera, tile, dev, card),
             "slice": _scan_slice(scene26, sky, camera, tile, dev, card),
             "renderer": _renderer_check(scene26, camera, dev, card),
             "full_hd": _full_hd(scene26, sky, tile, card),

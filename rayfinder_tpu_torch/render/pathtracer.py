@@ -248,9 +248,13 @@ def trace_radiance(
     rays scatter everywhere, so neighbouring lanes stop being coherent), the
     lanes are sorted by _coherence_key before each bounce after the first
     (one stable argsort), and the radiance goes back to pixel order at the
-    end; a lane's order changes no pixel's value. Each lane keeps its own
-    pixel's noise through the sort (the JAX form, with decorrelate,
-    re-reads the unsorted base noise from the third bounce on)."""
+    end. The noise is sorted with the lanes. Without decorrelate each lane
+    keeps its pixel's noise, so a lane's order changes no pixel's value.
+    With it, each bounce's noise is the base noise, which stays in pixel
+    order, plus that bounce's shift, made before the bounce's sort and then
+    sorted with the lanes: at bounce 2 a lane reads its own pixel's base
+    noise, and from bounce 3 on the base noise of the position it held
+    before that bounce's sort, as the JAX package computes it."""
     walks = get_engine(engine)
     dev = origin.device
     batch = origin.shape[0]
@@ -280,8 +284,7 @@ def trace_radiance(
             order = torch.argsort(_coherence_key(origin, direction, alive, lo, inv), stable=True)
             origin, direction, radiance, throughput = (
                 x[order] for x in (origin, direction, radiance, throughput))
-            alive, noise, base_noise, pixel_of = (
-                x[order] for x in (alive, noise, base_noise, pixel_of))
+            alive, noise, pixel_of = (x[order] for x in (alive, noise, pixel_of))
         radiance, hit_lane, p, wi, albedo, ray_ok = _segment(
             scene, sky, sun, walks, origin, direction, throughput, radiance, noise, alive)
         if bounce == num_bounces:

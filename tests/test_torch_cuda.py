@@ -786,6 +786,30 @@ def test_walk_kernels_equal_plain_on_the_scan_forms_rays(dev, scene8, monkeypatc
     assert parked > 0
 
 
+def test_sorted_decorrelated_scan_form_on_k1_k2_equals_plain(dev, scene8):
+    """trace_radiance(decorrelate=True) on courtyard_scene(8), above
+    SORT_THRESHOLD (lanes sorted before bounces 2-4, each bounce's noise
+    made from the base noise in pixel order and sorted with the lanes, as
+    the JAX package does): K1/K2 against their plain versions on the same
+    4,096 rays, bit for bit, one K1 and one K2 launch per bounce."""
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    assert scene8.num_clusters > pt.SORT_THRESHOLD
+    o, d = _probe_rays(dev)
+    noise = torch.from_numpy(np.random.default_rng(5).random((o.shape[0], 2),
+                                                             dtype=np.float32)).to(dev)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    before = (walk.intersect_closest_kernel.launches, walk.intersect_any_kernel.launches)
+    got = pt.trace_radiance(scene8, sky, o, d, noise, 4, engine="kernel", decorrelate=True)
+    assert (walk.intersect_closest_kernel.launches - before[0],
+            walk.intersect_any_kernel.launches - before[1]) == (4, 4)
+    want = pt.trace_radiance(scene8, sky, o, d, noise, 4, engine="plain", decorrelate=True)
+    assert bool(torch.isfinite(got).all()) and float(got.sum()) > 0.0
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("textured", [False, True])
 def test_unfused_loop_and_tiled_scan_form_match_the_default_route(dev, textured):
     """128x96, 8 spp, 4 bounces: the unfused loop over K1/K2 counts the

@@ -10,7 +10,8 @@ torch's and XLA's acos/exp/pow differ by an ulp); ray counts exact; images
 RMSE < 5e-3 (tests/test_goldens.py). Inputs: courtyard_scene(4) (72
 clusters: no bounce sort unless SORT_THRESHOLD is lowered), rays and noise
 made by the port from the blue-noise tile and handed to both packages as
-numpy arrays.
+numpy arrays; on courtyard_scene(8) (297 clusters: the bounce sort runs at
+the packages' own SORT_THRESHOLD), rays from a seeded numpy generator.
 """
 
 import pathlib
@@ -47,6 +48,12 @@ def courtyard():
     return build_device_scene(flat, textures=textures, device="cpu"), jax_build(flat, textures=textures)
 
 
+@pytest.fixture(scope="module")
+def courtyard8():
+    flat, textures = courtyard_scene(8)
+    return build_device_scene(flat, textures=textures, device="cpu"), jax_build(flat, textures=textures)
+
+
 def _tile():
     return torch.from_numpy(blue_noise_tile())
 
@@ -62,10 +69,46 @@ def _primaries(w, h, frame=1, spp=4):
     return o, d, noise
 
 
+def _seeded_primaries(n, seed=12):
+    """n thin-lens primary rays of the courtyard camera at uniform image
+    points, with uniform noise: all drawn from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    uv = torch.from_numpy(rng.random((n, 2), dtype=np.float32))
+    noise = torch.from_numpy(rng.random((n, 2), dtype=np.float32))
+    o, d = generate_camera_ray_lens(create_camera(*EYE, 1.5), noise, uv[:, 0], uv[:, 1])
+    return o, d, noise
+
+
 def _jax_trace(jscene, o, d, noise, bounces, **kw):
     return np.asarray(jpt.trace_radiance(
         jscene, jax_sky(*SKY), jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
         jnp.asarray(noise.numpy()), bounces, engine="reference", **kw))
+
+
+def _count_sorts(monkeypatch):
+    """Count the port's bounce sorts (one _coherence_key per sort)."""
+    keys = []
+    key = pt._coherence_key
+    monkeypatch.setattr(pt, "_coherence_key", lambda *a: keys.append(1) or key(*a))
+    return keys
+
+
+def _sorted_scene_vs_jax(courtyard8, monkeypatch, decorrelate):
+    """courtyard_scene(8) above both packages' SORT_THRESHOLD, 2,048 seeded
+    rays, 4 bounces: the port's plain engine (K1/K2's plain versions)
+    against JAX's reference engine, radiance rtol 2e-4 / atol 1e-5."""
+    port, jscene = courtyard8
+    assert port.num_clusters > pt.SORT_THRESHOLD
+    assert jscene.cluster_tris.shape[0] > jpt.SORT_THRESHOLD
+    o, d, noise = _seeded_primaries(2048)
+    want = _jax_trace(jscene, o, d, noise, 4, decorrelate=decorrelate)
+    keys = _count_sorts(monkeypatch)
+    got = pt.trace_radiance(port, sky_state_from_ui(*SKY), o, d, noise, 4, engine="plain",
+                            decorrelate=decorrelate)
+    assert len(keys) == 3  # one sort per bounce after the first
+    assert got.shape == (2048, 3) and float(got.sum()) > 0.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-5)
+    return got
 
 
 @pytest.mark.parametrize("engine", ["reference", "plain", "kernel"])
@@ -95,19 +138,46 @@ def test_trace_radiance_sorted_matches_jax(courtyard, monkeypatch):
 
 @pytest.mark.parametrize("decorrelate", [False, True])
 def test_lane_order_changes_no_pixel(courtyard, monkeypatch, decorrelate):
-    """The sorted scan form equals the unsorted one bit for bit, with and
-    without decorrelated noise (each lane keeps its pixel's noise)."""
-    port, _ = courtyard
+    """The sorted scan form (SORT_THRESHOLD 0) against the unsorted one.
+    Without decorrelate each lane keeps its pixel's noise, so the two are
+    equal bit for bit. With it, JAX's bounce noise is the base noise in
+    pixel order plus the bounce's shift, sorted with the lanes after it is
+    made, so the lane order does change pixels: the sorted form then holds
+    to JAX's sorted form (SORT_THRESHOLD 0 in both packages), and differs
+    from the unsorted one."""
+    port, jscene = courtyard
     o, d, noise = _primaries(W, H)
     sky = sky_state_from_ui(*SKY)
     plain = pt.trace_radiance(port, sky, o, d, noise, 4, engine="plain", decorrelate=decorrelate)
     monkeypatch.setattr(pt, "SORT_THRESHOLD", 0)
-    keys = []
-    key = pt._coherence_key
-    monkeypatch.setattr(pt, "_coherence_key", lambda *a: keys.append(1) or key(*a))
+    keys = _count_sorts(monkeypatch)
     got = pt.trace_radiance(port, sky, o, d, noise, 4, engine="plain", decorrelate=decorrelate)
     assert len(keys) == 3  # one sort per bounce after the first
-    assert torch.equal(got, plain)
+    if not decorrelate:
+        assert torch.equal(got, plain)
+        return
+    monkeypatch.setattr(jpt, "SORT_THRESHOLD", 0)
+    want = _jax_trace(jscene, o, d, noise, 4, decorrelate=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-5)
+    assert not torch.equal(got, plain)
+
+
+def test_trace_radiance_decorrelated_sorted_matches_jax(courtyard8, monkeypatch):
+    """Decorrelated noise on a scene the bounce sort runs on, at the real
+    threshold: JAX adds each bounce's shift to the base noise in pixel order
+    before that bounce's sort, so from bounce 3 on a lane reads the base
+    noise of the position it held before the sort, not its pixel's."""
+    got = _sorted_scene_vs_jax(courtyard8, monkeypatch, True)
+    port = courtyard8[0]
+    o, d, noise = _seeded_primaries(2048)
+    plain = pt.trace_radiance(port, sky_state_from_ui(*SKY), o, d, noise, 4, engine="plain")
+    assert not torch.equal(got, plain)
+
+
+def test_trace_radiance_sorted_scene_matches_jax(courtyard8, monkeypatch):
+    """Without decorrelate on the same sorted scene: each lane carries its
+    pixel's noise through the sort, in both packages."""
+    _sorted_scene_vs_jax(courtyard8, monkeypatch, False)
 
 
 def test_trace_radiance_decorrelated_matches_jax(courtyard):
