@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..sky.model import SkyState, sky_radiance
+from ..utils import profiling
 from .camera import Camera, generate_camera_ray
 from .intersect import T_MAX, dot, offset_ray
 from .pathtracer import get_engine
@@ -49,6 +50,9 @@ from .tonemap import tonemap
 _DEFERRED_INT_SCALE = 1024.0
 _DEFERRED_FLOAT_SCALE = 1.0 / 16384.0
 _NOISE_PERIOD = 1 << 20  # animatedBlueNoise period in the deferred path
+
+# The frame's passes, each a device span of frame_pass (rf.deferred.<pass>).
+PASSES = ("gbuffer", "lighting", "resolve")
 
 # R2 jitter constants (r_sequence.hpp:11-22), rounded from f64 as JAX does.
 _A1 = np.float32(1.0 / 1.32471795)
@@ -218,16 +222,22 @@ def frame_pass(
 ):
     """One deferred frame: gbuffer -> lighting -> resolve. Returns
     (new_accum, display u8)."""
-    gbuf = gbuffer_pass(scene, camera, frame_count, width=width, height=height, engine=engine)
-    sample = lighting_pass(scene, sky, gbuf, frame_count, width=width, height=height,
-                           engine=engine, tile=tile)
-    return resolve_pass(sample, accum, frame_count, exposure)
+    with profiling.span("rf.deferred.gbuffer", device=True):
+        gbuf = gbuffer_pass(scene, camera, frame_count, width=width, height=height,
+                            engine=engine)
+    with profiling.span("rf.deferred.lighting", device=True):
+        sample = lighting_pass(scene, sky, gbuf, frame_count, width=width, height=height,
+                               engine=engine, tile=tile)
+    with profiling.span("rf.deferred.resolve", device=True):
+        return resolve_pass(sample, accum, frame_count, exposure)
 
 
 def _on_device(sky: SkyState, dev) -> SkyState:
     """The sky's fields as tensors on `dev`, so a frame copies nothing from
     the host."""
-    return SkyState(*(torch.as_tensor(np.asarray(f, np.float32), device=dev) for f in sky))
+    fields = [np.asarray(f, np.float32) for f in sky]
+    profiling.count(profiling.H2D_BYTES, sum(f.nbytes for f in fields))
+    return SkyState(*(torch.as_tensor(f, device=dev) for f in fields))
 
 
 class DeferredRenderer:
@@ -248,12 +258,9 @@ class DeferredRenderer:
         self._sky_key = None
         self._sky = None
         self.accum = torch.zeros(height * width, 3, device=scene.device)
-        # 30-frame rolling durations (deferred_renderer.cpp:2031-2053). The
-        # frame records under "frame"; the per-pass keys stay for the panel.
-        self._pass_durations = {
-            name: collections.deque(maxlen=30)
-            for name in ("gbuffer", "lighting", "resolve", "frame")
-        }
+        # 30-frame rolling frame durations (deferred_renderer.cpp:2031-2053);
+        # the passes' times are their spans' (perf_stats).
+        self._pass_durations = {"frame": collections.deque(maxlen=30)}
 
     def resize(self, width: int, height: int) -> None:
         self.width = width
@@ -275,26 +282,44 @@ class DeferredRenderer:
         time recorded spans the frame, the device sync and the copy."""
         dev = self.scene.device
         t0 = time.perf_counter()
-        self.accum, img8 = frame_pass(
-            self.scene, self._device_sky(sky), camera, self.accum, self.frame_count,
-            float(exposure), width=self.width, height=self.height, engine=self.engine,
-            tile=self._tile,
-        )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        out = (img8.cpu().numpy().reshape(self.height, self.width, 3)
-               .astype(np.float32) / np.float32(255.0))
+        with profiling.span("rf.deferred.frame", frame=self.frame_count):
+            self.accum, img8 = frame_pass(
+                self.scene, self._device_sky(sky), camera, self.accum, self.frame_count,
+                float(exposure), width=self.width, height=self.height, engine=self.engine,
+                tile=self._tile,
+            )
+            if dev.type == "cuda":
+                with profiling.span("rf.deferred.sync"):
+                    torch.cuda.synchronize(dev)
+            with profiling.span("rf.deferred.readback"):
+                img8 = img8.cpu().numpy()
+            with profiling.span("rf.deferred.to_float"):
+                out = (img8.reshape(self.height, self.width, 3).astype(np.float32)
+                       / np.float32(255.0))
         self._pass_durations["frame"].append(time.perf_counter() - t0)
         self.frame_count += 1
         return out
 
     def perf_stats(self) -> dict:
-        """30-frame rolling average per-pass durations in ms
-        (DeferredRenderer::getPerfStats, deferred_renderer.cpp:2031-2053)."""
-        return {
-            name: (1000.0 * sum(d) / len(d) if d else 0.0)
-            for name, d in self._pass_durations.items()
-        }
+        """30-frame rolling averages in ms (DeferredRenderer::getPerfStats,
+        deferred_renderer.cpp:2031-2053): "frame", the host's time of a whole
+        frame; and while a profiling.recording() block is open, "gbuffer",
+        "lighting" and "resolve", each pass's device time over the last 30 of
+        its spans there (on the CPU, where a pass's work is done as it is
+        queued, its host time)."""
+        stats = {name: (1000.0 * sum(d) / len(d) if d else 0.0)
+                 for name, d in self._pass_durations.items()}
+        rec = profiling.recorder()
+        if rec is None:
+            return stats
+        on_card = self.scene.device.type == "cuda"
+        for name in PASSES:
+            ms = [s.device_ms if on_card else 1000.0 * (s.t1 - s.t0)
+                  for s in rec.spans(f"rf.deferred.{name}")[-30:]]
+            ms = [m for m in ms if m is not None]
+            if ms:
+                stats[name] = sum(ms) / len(ms)
+        return stats
 
     def render_debug(self, camera: Camera) -> np.ndarray:
         """G-buffer triptych: albedo | encoded normal | depth

@@ -60,6 +60,8 @@ from ..ops.walk import (
     intersect_closest_kernel, intersect_closest_reference,
 )
 from ..sky.model import SkyState, sky_radiance_dist
+from ..utils import profiling
+from ..utils.profiling import H2D_BYTES
 from .camera import Camera, generate_camera_ray_lens, primary_ray
 from .intersect import T_MAX, dot, to_int32
 from .rng import animated_blue_noise, blue_noise_tile, noise_of
@@ -322,6 +324,7 @@ def _scan_frames(scene, sky, camera, tile, frame_base: int, accum, ys, xs, *, wi
 def _pixels(width: int, height: int, dev, x0: int = 0, y0: int = 0):
     """(ys, xs) of a width x height window at (x0, y0), in block order."""
     ys_np, xs_np, _ = block_order(width, height)
+    profiling.count(H2D_BYTES, ys_np.nbytes + xs_np.nbytes)
     return torch.from_numpy(ys_np).to(dev) + y0, torch.from_numpy(xs_np).to(dev) + x0
 
 
@@ -402,14 +405,15 @@ class _Dispatch:
     def shaded_call(self, st, lanes, lrad, live_floor, rays):
         """One K4 call down to `live_floor` live lanes per 128-lane tile; the
         rays it traced are added to `rays` ([closest, shadow])."""
-        out = self.kernels.shaded(
-            *self.pixel_args(lanes), self.num_bounces, live_floor, T_MAX,
-            st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
-            st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
-        )
-        (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"], st["thr"],
-         st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"], traced) = out
-        rays.add_(traced)
+        with profiling.span("rf.pt.k4", device=True):
+            out = self.kernels.shaded(
+                *self.pixel_args(lanes), self.num_bounces, live_floor, T_MAX,
+                st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
+                st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
+            )
+            (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"], st["thr"],
+             st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"], traced) = out
+            rays.add_(traced)
         return lrad
 
     def segs_step(self, st, lanes, lrad):
@@ -437,20 +441,23 @@ class _Dispatch:
 
 
 def _initial_state(d: _Dispatch, lanes, batch, dev):
-    sample = torch.zeros(batch, dtype=torch.int32, device=dev)
-    o0, d0 = d.primary(lanes, sample)
-    return dict(
-        sample=sample,
-        bounce=torch.ones(batch, dtype=torch.int32, device=dev),
-        flag=torch.zeros(batch, dtype=torch.int32, device=dev),  # no NEE pending
-        origin=o0,
-        direction=d0,
-        thr=torch.ones(batch, 3, device=dev),
-        srad=torch.zeros(batch, 3, device=dev),
-        shadow_o=torch.full((batch, 3), PARK, device=dev),
-        shadow_d=torch.tensor([1.0, 0.0, 0.0], device=dev).expand(batch, 3).contiguous(),
-        contrib=torch.zeros(batch, 3, device=dev),
-    )
+    with profiling.span("rf.pt.initial_state"):
+        sample = torch.zeros(batch, dtype=torch.int32, device=dev)
+        o0, d0 = d.primary(lanes, sample)
+        park_dir = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        profiling.count(H2D_BYTES, park_dir.nbytes)
+        return dict(
+            sample=sample,
+            bounce=torch.ones(batch, dtype=torch.int32, device=dev),
+            flag=torch.zeros(batch, dtype=torch.int32, device=dev),  # no NEE pending
+            origin=o0,
+            direction=d0,
+            thr=torch.ones(batch, 3, device=dev),
+            srad=torch.zeros(batch, 3, device=dev),
+            shadow_o=torch.full((batch, 3), PARK, device=dev),
+            shadow_d=park_dir.expand(batch, 3).contiguous(),
+            contrib=torch.zeros(batch, 3, device=dev),
+        )
 
 
 def _compact(busy, size, pix, batch, *tables):
@@ -928,6 +935,7 @@ def accumulate_lanes_regen(
         sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
         solar=torch.as_tensor(sky.solar_radiances, device=dev),
     )
+    profiling.count(H2D_BYTES, d.sun_dir.nbytes + d.solar.nbytes)
     lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
     if engine in _UNFUSED:
         floor = _COMPACT_FLOOR if compact_floor is None else compact_floor
@@ -1009,13 +1017,14 @@ def accumulate_samples_regen(
     over the cluster engine (render/wavefront.py); they take no route
     keyword."""
     dev = accum.device
-    ys, xs = _pixels(width, height, dev)
-    u = (xs.to(torch.float32) + 0.5) / float(width)
-    v_tex = (ys.to(torch.float32) + 0.5) / float(height)
-    # The tile value is a function of the pixel: gather it once per call;
-    # each sample's noise is that base plus the frame's R2 offset.
-    th, tw = blue_noise_tile.shape[0], blue_noise_tile.shape[1]
-    noise_base = blue_noise_tile[(ys % th).long(), (xs % tw).long()]
+    with profiling.span("rf.pt.lanes"):
+        ys, xs = _pixels(width, height, dev)
+        u = (xs.to(torch.float32) + 0.5) / float(width)
+        v_tex = (ys.to(torch.float32) + 0.5) / float(height)
+        # The tile value is a function of the pixel: gather it once per call;
+        # each sample's noise is that base plus the frame's R2 offset.
+        th, tw = blue_noise_tile.shape[0], blue_noise_tile.shape[1]
+        noise_base = blue_noise_tile[(ys % th).long(), (xs % tw).long()]
     inv_dims = (float(np.float32(1.0) / np.float32(width)),
                 float(np.float32(1.0) / np.float32(height)))
     return accumulate_lanes_regen(

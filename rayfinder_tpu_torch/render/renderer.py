@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..sky.model import SkyState, sky_state_from_ui
+from ..utils import profiling
 from .camera import Camera
 from .pathtracer import SamplingParams, accumulate_samples_regen, pick_accumulator
 from .rng import blue_noise_tile
@@ -142,36 +143,38 @@ class Renderer:
         synchronised before the end time is read."""
         p = self._params
         t0 = time.perf_counter()
-        remaining = p.sampling.num_samples_per_pixel - self.accumulated_sample_count
-        to_add = max(0, min(num_frames, remaining))
-        if to_add > 0:
-            accumulate = pick_accumulator(self.scene, self.engine)
-            kw = dict(
-                width=p.width,
-                height=p.height,
-                num_bounces=p.sampling.num_bounces,
-                spp=p.sampling.num_samples_per_pixel,
-                num_frames=to_add,
-                engine=self.engine,
-            )
-            counting = self._count_rays and accumulate is accumulate_samples_regen
-            if counting:
-                kw["count_rays"] = True
-            elif self._count_rays:
-                self.total_rays = None  # counting unavailable on this path
-            out = accumulate(
-                self.scene, self._sky_state, p.camera, self._tile, self.frame_count,
-                self._accum, **kw,
-            )
-            if counting:
-                self._accum, rays = out
-                self.total_rays += int(rays.sum())
-            else:
-                self._accum = out
-            self.accumulated_sample_count += to_add
-        self.frame_count += num_frames
-        if self.scene.device.type == "cuda":
-            torch.cuda.synchronize(self.scene.device)
+        with profiling.span("rf.pt.render", frame=self.frame_count):
+            remaining = p.sampling.num_samples_per_pixel - self.accumulated_sample_count
+            to_add = max(0, min(num_frames, remaining))
+            if to_add > 0:
+                accumulate = pick_accumulator(self.scene, self.engine)
+                kw = dict(
+                    width=p.width,
+                    height=p.height,
+                    num_bounces=p.sampling.num_bounces,
+                    spp=p.sampling.num_samples_per_pixel,
+                    num_frames=to_add,
+                    engine=self.engine,
+                )
+                counting = self._count_rays and accumulate is accumulate_samples_regen
+                if counting:
+                    kw["count_rays"] = True
+                elif self._count_rays:
+                    self.total_rays = None  # counting unavailable on this path
+                out = accumulate(
+                    self.scene, self._sky_state, p.camera, self._tile, self.frame_count,
+                    self._accum, **kw,
+                )
+                if counting:
+                    self._accum, rays = out
+                    self.total_rays += int(rays.sum())
+                else:
+                    self._accum = out
+                self.accumulated_sample_count += to_add
+            self.frame_count += num_frames
+            if self.scene.device.type == "cuda":
+                with profiling.span("rf.pt.sync"):
+                    torch.cuda.synchronize(self.scene.device)
         self._durations.append(time.perf_counter() - t0)
 
     def render_progress_percentage(self) -> float:
@@ -187,7 +190,8 @@ class Renderer:
     def _estimator(self):
         p = self._params
         count = max(1, self.accumulated_sample_count)
-        return unswizzle(self._accum, p.width, p.height) / float(count)
+        with profiling.span("rf.pt.unswizzle"):
+            return unswizzle(self._accum, p.width, p.height) / float(count)
 
     def image(self) -> np.ndarray:
         """Tonemapped running-mean estimate, (H, W, 3) float32 in [0, 1]."""
@@ -198,10 +202,14 @@ class Renderer:
     def image_u8(self) -> np.ndarray:
         """Display-ready 8-bit frame, tonemapped and quantized on the device
         (a quarter of image()'s bytes to copy): image() * 255, rounded half
-        to even and clamped."""
+        to even and clamped. Its spans share the last render()'s frame."""
         p = self._params
-        img8 = _display_u8(self._estimator(), p.exposure)
-        return img8.reshape(p.height, p.width, 3).cpu().numpy()
+        with profiling.span("rf.pt.image"):
+            estimator = self._estimator()
+            with profiling.span("rf.pt.display"):
+                img8 = _display_u8(estimator, p.exposure)
+            with profiling.span("rf.pt.readback"):
+                return img8.reshape(p.height, p.width, 3).cpu().numpy()
 
     # -- checkpoint / resume (beyond the reference, whose render state lived
     # in GPU memory and was lost on any parameter change) ------------------

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 SUB_W = 16
 SUB_H = 8
 _SUBDIV = 2
@@ -58,7 +60,9 @@ def block_order(width: int, height: int):
 def unswizzle(flat_block_ordered, width: int, height: int):
     """(H*W, ...) block-ordered tensor -> row-major flat order."""
     _, _, pixel_idx = block_order(width, height)
-    idx = torch.from_numpy(pixel_idx.astype(np.int64)).to(flat_block_ordered.device)
+    idx_np = pixel_idx.astype(np.int64)
+    profiling.count(profiling.H2D_BYTES, idx_np.nbytes)
+    idx = torch.from_numpy(idx_np).to(flat_block_ordered.device)
     out = torch.empty_like(flat_block_ordered)
     out[idx] = flat_block_ordered
     return out

@@ -47,6 +47,7 @@ from ..render.deferred import DeferredRenderer
 from ..render.fly_camera import FlyCameraController, FlyInput, pick_focus_distance
 from ..render.pathtracer import SamplingParams
 from ..render.renderer import Renderer, RenderParameters, Sky
+from ..utils import profiling
 from ..utils.image import write_png
 from .render import ENGINES, load_scene
 
@@ -279,9 +280,12 @@ def main(argv=None) -> int:
     if lines is sys.stdin and sys.stdin.isatty():
         print("viewer ready -- commands: w/a/s/d/q/e, look, pick, spp, "
               "frames N, wait, quit")
-    for line in lines:
-        if not session.handle(line):
-            break
+    # The renderers' spans of the last 30 frames: the deferred status line's
+    # pass times.
+    with profiling.recording(keep_frames=30):
+        for line in lines:
+            if not session.handle(line):
+                break
     return 0
 
 

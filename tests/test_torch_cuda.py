@@ -1063,3 +1063,62 @@ def test_walk_kernels_match_brute_force_on_flat_courtyard8(dev, scene8):
     assert differ == [6]
     inf = torch.tensor(float("inf"), device=dev)
     assert bt[6] < t[6] <= torch.nextafter(torch.nextafter(bt[6], inf), inf)
+
+
+def _bench_view(w, h):
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.renderer import Sky
+
+    return (create_camera([-16, 5, 0], [12, 2, 0], 0.0, 1.0, 70.0, w / h),
+            Sky(2.5, (0.3, 0.3, 0.3), 35.0, 25.0))
+
+
+def test_h2d_counter_equals_the_traced_copies(dev, scene8, tmp_path):
+    """rf.h2d_bytes over one 1920x1080 render(8) + image_u8() is within 1% of
+    the bytes of the host-to-device copies in a torch.profiler chrome trace
+    of the same calls (the counter leaves out the camera's vectors)."""
+    import json
+
+    from rayfinder_tpu_torch.render.pathtracer import SamplingParams
+    from rayfinder_tpu_torch.render.renderer import Renderer, RenderParameters
+    from rayfinder_tpu_torch.utils import profiling
+
+    camera, sky = _bench_view(1920, 1080)
+    r = Renderer(scene8, RenderParameters(1920, 1080, camera, SamplingParams(64, 4), sky, 0.25))
+    r.render(8)
+    r.image_u8()
+    profiling.PROFILED.take()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.render(8)
+        r.image_u8()
+    counted = sum(c.n for c in profiling.PROFILED.take()
+                  if isinstance(c, profiling.Count) and c.name == profiling.H2D_BYTES)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    copies = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    copied = sum(int(e["args"]["bytes"]) for e in copies)
+    print(f"rf.h2d_bytes {counted}, HtoD copies {len(copies)} of {copied} bytes")
+    assert counted > 33_000_000 and abs(counted - copied) <= 0.01 * copied
+
+
+def test_deferred_pass_spans_lie_inside_the_frame(dev, scene8):
+    """Over one 1920x1080 deferred frame each pass's device interval (its CUDA
+    event pair) is above 0, and the three together are no longer than the
+    frame's rf.deferred.frame host interval."""
+    from rayfinder_tpu_torch.render.deferred import PASSES, DeferredRenderer
+    from rayfinder_tpu_torch.utils import profiling
+
+    camera, sky = _bench_view(1920, 1080)
+    dr = DeferredRenderer(scene8, 1920, 1080)
+    dr.render(camera, sky.state(), 0.25)
+    with profiling.recording() as rec:
+        dr.render(camera, sky.state(), 0.25)
+        stats = dr.perf_stats()
+    (frame,) = rec.spans("rf.deferred.frame")
+    passes = {p: rec.spans(f"rf.deferred.{p}")[0].device_ms for p in PASSES}
+    print(f"frame {1e3 * (frame.t1 - frame.t0):.3f} ms host, passes {passes} ms device")
+    assert all(ms is not None and ms > 0.0 for ms in passes.values())
+    assert sum(passes.values()) <= 1e3 * (frame.t1 - frame.t0)
+    assert {p: stats[p] for p in PASSES} == pytest.approx(passes)

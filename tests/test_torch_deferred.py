@@ -193,9 +193,11 @@ def test_deferred_renderer_frames_match_jax(scenes, engine):
         images.append(got)
     assert pr.frame_count == 3
     assert not np.array_equal(images[0], images[1])  # TAA: a blend, not a copy
+    # Outside a profiling.recording() block only the frame is timed (the
+    # passes' times come from their spans, tests/test_torch_tracing.py).
     stats = pr.perf_stats()
-    assert set(stats) == set(jr.perf_stats()) == {"gbuffer", "lighting", "resolve", "frame"}
-    assert stats["frame"] > 0.0 and stats["gbuffer"] == 0.0
+    assert set(stats) == {"frame"} and "frame" in jr.perf_stats()
+    assert stats["frame"] > 0.0
     pr.invalidate_temporal_accumulation()
     assert pr.frame_count == 0 and not bool(pr.accum.any())
     pr.render(cam, sky_state_from_ui(*SKY), EXPOSURE)
