@@ -93,7 +93,7 @@ kernels from csrc/, then:
    tests/goldens/courtyard_deferred_128x96_f3.npz, and the sun check;
    (b) the slice's path: DeferredRenderer on courtyard_scene(26) at
    1920x1080 (bench camera and sky), two warm-up and eight timed frames
-   (ms per frame, synchronised, u8 readback included; 2 K1 + 2 K2 launches
+   (ms per frame, synchronised, readback included; 2 K1 + 2 K2 launches
    per frame, counted over the timed frames), the three passes unfused
    between CUDA events, one frame under torch.profiler, the peak memory,
    one frame's four queries launched at full width, each launch's result
@@ -1979,7 +1979,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
     )
     from rayfinder_tpu_torch.render.camera import create_camera
     from rayfinder_tpu_torch.render.deferred import (
-        DeferredRenderer, gbuffer_pass, lighting_pass, resolve_pass,
+        DeferredRenderer, float_table, gbuffer_pass, lighting_pass, resolve_pass, to_float,
     )
     from rayfinder_tpu_torch.render.traverse import count_work, intersect_any
     from rayfinder_tpu_torch.sky.model import sky_state_from_ui
@@ -2003,7 +2003,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
     n = DEFERRED_HD["timed_frames"]
     ms = 1e3 * sum(frame_s) / n
     print(f"deferred {w}x{h} on {scene.num_triangles} triangles: {ms:.3f} ms per frame "
-          f"(synchronised, u8 readback "
+          f"(synchronised, readback "
           f"included; frames {[round(1e3 * s, 3) for s in frame_s]} ms), rolling 'frame' "
           f"{r.perf_stats()['frame']:.3f} ms, K1/K2 launches over {n} frames {launches}, peak "
           f"memory {peak / 2**20:.1f} MiB [{card}]", flush=True)
@@ -2035,17 +2035,17 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
         f"{k} {v:.3f} ms" for k, v in pass_ms.items()) + f" [{card}]", flush=True)
 
     profile = _device_busy("deferred 1080p frame", lambda: r.render(cam, sky, 0.25), card)
-    # The host's share of render(): the u8 frame's copy to the host, and its
-    # conversion to the f32 image render() returns.
+    # render()'s output: the u8 frame's float32 conversion on the card, and
+    # the image's copy into page-locked host memory.
     img8 = torch.zeros(h * w, 3, dtype=torch.uint8, device=dev)
-    _, copy_s = _timed(lambda: [img8.cpu() for _ in range(5)])
-    u8 = img8.cpu().numpy().reshape(h, w, 3)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        u8.astype(np.float32) / np.float32(255.0)
-    convert_ms = 1e3 * (time.perf_counter() - t0) / 5
-    print(f"deferred 1080p readback: the u8 frame's copy to the host {1e3 * copy_s / 5:.3f} ms, "
-          f"its conversion to f32 on the host {convert_ms:.3f} ms [{card}]", flush=True)
+    table = float_table(dev)
+    convert_ms = _time_ms(lambda: to_float(img8, table), 5)
+    image = to_float(img8, table)
+    pinned = torch.empty(image.shape, dtype=torch.float32, pin_memory=True)
+    readback_ms = _time_ms(lambda: pinned.copy_(image, non_blocking=True), 5)
+    print(f"deferred 1080p output: the u8 frame's f32 conversion on the card {convert_ms:.3f} "
+          f"ms, the f32 image's copy to pinned host memory {readback_ms:.3f} ms [{card}]",
+          flush=True)
 
     # One frame's queries, each launched at full width: the launch's result
     # held to plain on a window at each end of the rays (the image's top and
@@ -2113,7 +2113,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
           f"{k2_bound['bound_ms']:.4f} ms, {k2_bound['bound_by']}) [{card}]", flush=True)
     return {"ms_per_frame": ms, "frame_ms": [1e3 * s for s in frame_s], "launches": launches,
             "peak_bytes": peak, "pass_ms": pass_ms, "profile": profile, "query_ms": query_ms,
-            "readback_ms": 1e3 * copy_s / 5, "convert_ms": convert_ms,
+            "readback_ms": readback_ms, "convert_ms": convert_ms,
             "window_checks": checks, "window_dropped": dropped, "window_nonfinite": nonfinite,
             "parking_ab": parking,
             "k1_window_ms": k1_ms, "k2_window_ms": k2_ms,

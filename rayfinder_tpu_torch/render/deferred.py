@@ -232,6 +232,21 @@ def frame_pass(
         return resolve_pass(sample, accum, frame_count, exposure)
 
 
+def float_table(dev):
+    """The float32 value of every display byte b = 0..255 on `dev`: numpy's
+    b.astype(float32) / float32(255), so that a gather through it gives
+    numpy's bits (torch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which differs on 126 of the 256 bytes)."""
+    return torch.from_numpy(np.arange(256, dtype=np.uint8).astype(np.float32)
+                            / np.float32(255.0)).to(dev)
+
+
+def to_float(img8, table):
+    """The display bytes img8 as float32 through float_table's `table`: one
+    cast and one gather on img8's device, in img8's shape."""
+    return table.index_select(0, img8.reshape(-1).to(torch.int32)).reshape(img8.shape)
+
+
 def _on_device(sky: SkyState, dev) -> SkyState:
     """The sky's fields as tensors on `dev`, so a frame copies nothing from
     the host."""
@@ -255,6 +270,7 @@ class DeferredRenderer:
         self.engine = engine
         self.frame_count = 0
         self._tile = torch.from_numpy(blue_noise_tile()).to(scene.device)
+        self._to_float = float_table(scene.device)
         self._sky_key = None
         self._sky = None
         self.accum = torch.zeros(height * width, 3, device=scene.device)
@@ -278,8 +294,10 @@ class DeferredRenderer:
         return self._sky
 
     def render(self, camera: Camera, sky: SkyState, exposure: float = 1.0) -> np.ndarray:
-        """One frame: the (H, W, 3) float32 image from the device's u8. The
-        time recorded spans the frame, the device sync and the copy."""
+        """One frame: the (H, W, 3) float32 image, the device's u8 display
+        converted on the device and copied into a new block of page-locked
+        host memory (pageable on the CPU), which the caller owns. The time
+        recorded spans the frame, the copy and the device sync."""
         dev = self.scene.device
         t0 = time.perf_counter()
         with profiling.span("rf.deferred.frame", frame=self.frame_count):
@@ -288,17 +306,19 @@ class DeferredRenderer:
                 float(exposure), width=self.width, height=self.height, engine=self.engine,
                 tile=self._tile,
             )
+            with profiling.span("rf.deferred.to_float"):
+                image = to_float(img8, self._to_float).reshape(self.height, self.width, 3)
+            with profiling.span("rf.deferred.readback"):
+                out = torch.empty(image.shape, dtype=torch.float32,
+                                  pin_memory=dev.type == "cuda")
+                out.copy_(image, non_blocking=True)
+                profiling.count(profiling.D2H_BYTES, out.nbytes)
             if dev.type == "cuda":
                 with profiling.span("rf.deferred.sync"):
                     torch.cuda.synchronize(dev)
-            with profiling.span("rf.deferred.readback"):
-                img8 = img8.cpu().numpy()
-            with profiling.span("rf.deferred.to_float"):
-                out = (img8.reshape(self.height, self.width, 3).astype(np.float32)
-                       / np.float32(255.0))
         self._pass_durations["frame"].append(time.perf_counter() - t0)
         self.frame_count += 1
-        return out
+        return out.numpy()
 
     def perf_stats(self) -> dict:
         """30-frame rolling averages in ms (DeferredRenderer::getPerfStats,

@@ -1122,3 +1122,51 @@ def test_deferred_pass_spans_lie_inside_the_frame(dev, scene8):
     assert all(ms is not None and ms > 0.0 for ms in passes.values())
     assert sum(passes.values()) <= 1e3 * (frame.t1 - frame.t0)
     assert {p: stats[p] for p in PASSES} == pytest.approx(passes)
+
+
+def test_deferred_frame_is_converted_on_the_card_into_pinned_memory(dev, scene8):
+    """Over 1920x1080 deferred frames on the default engine: every display
+    byte converts on the card to numpy's u8 / float32(255) bit for bit;
+    render's image is numpy's conversion of a twin renderer's frame_pass
+    bytes, in page-locked memory, and keeps its values after the next
+    render; rf.d2h_bytes counts the image's 24,883,200 bytes a frame; once
+    warm, no frame allocates pinned memory; the copy is a DtoH to pinned
+    memory in torch.profiler's events."""
+    from rayfinder_tpu_torch.render import deferred as pd
+    from rayfinder_tpu_torch.utils import profiling
+
+    codes = pd.to_float(torch.arange(256, dtype=torch.uint8, device=dev), pd.float_table(dev))
+    want = np.arange(256, dtype=np.uint8).astype(np.float32) / np.float32(255.0)
+    np.testing.assert_array_equal(codes.cpu().numpy().view(np.uint32), want.view(np.uint32))
+
+    w, h = 1920, 1080
+    camera, sky = _bench_view(w, h)
+    sky = sky.state()
+    r, twin = pd.DeferredRenderer(scene8, w, h), pd.DeferredRenderer(scene8, w, h)
+    held, allocs = None, []
+    for frame in range(6):
+        with profiling.recording() as rec:
+            got = r.render(camera, sky, 0.25)
+        d2h = [c.n for c in rec.records()
+               if isinstance(c, profiling.Count) and c.name == profiling.D2H_BYTES]
+        twin.accum, img8 = pd.frame_pass(scene8, twin._device_sky(sky), camera, twin.accum,
+                                         frame, 0.25, width=w, height=h, tile=twin._tile)
+        want = img8.cpu().numpy().reshape(h, w, 3).astype(np.float32) / np.float32(255.0)
+        assert got.shape == (h, w, 3) and got.flags.c_contiguous
+        assert torch.from_numpy(got).is_pinned()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        assert d2h == [w * h * 3 * 4] == [24_883_200]
+        if held is not None:  # the frame before, after this render
+            assert not np.shares_memory(held[0], got)
+            np.testing.assert_array_equal(held[0].view(np.uint32), held[1].view(np.uint32))
+        held = (got, want)
+        allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+    print(f"pinned blocks allocated after each frame: {allocs}")
+    assert allocs[2] == allocs[-1]
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.render(camera, sky, 0.25)
+    copies = {e.name for e in prof.events() if e.name.startswith("Memcpy DtoH")}
+    profiling.PROFILED.take()
+    assert copies == {"Memcpy DtoH (Device -> Pinned)"}, copies

@@ -261,6 +261,37 @@ def test_engines_and_devices():
                                                  sky_state_from_ui(*SKY), EXPOSURE))
 
 
+def test_float_table_is_numpys_division_bit_for_bit():
+    """The device-side conversion of every display byte equals numpy's
+    u8.astype(float32) / float32(255), compared as bits."""
+    want = np.arange(256, dtype=np.uint8).astype(np.float32) / np.float32(255.0)
+    got = pd.to_float(torch.arange(256, dtype=torch.uint8), pd.float_table("cpu")).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_render_returns_numpys_float_frame_bit_for_bit(scenes):
+    """Two frames (a copy into the history, then a blend): render's image is
+    numpy's float32 conversion of the display bytes that a twin renderer's
+    frame_pass gives for the same frame, bit for bit, as a new C-contiguous
+    array each frame."""
+    port, _, _ = scenes
+    cam, sky = create_camera(*EYE, W / H), sky_state_from_ui(*SKY)
+    r = pd.DeferredRenderer(port, W, H, engine="plain")
+    twin = pd.DeferredRenderer(port, W, H, engine="plain")
+    before = None
+    for frame in (0, 1):
+        got = r.render(cam, sky, EXPOSURE)
+        twin.accum, img8 = pd.frame_pass(port, twin._device_sky(sky), cam, twin.accum, frame,
+                                         EXPOSURE, width=W, height=H, engine="plain",
+                                         tile=twin._tile)
+        want = img8.numpy().reshape(H, W, 3).astype(np.float32) / np.float32(255.0)
+        assert got.dtype == np.float32 and got.flags.c_contiguous and got.shape == (H, W, 3)
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        assert before is None or not np.shares_memory(before, got)
+        before = got
+
+
 @pytest.mark.parametrize("textured", [False, True])
 def test_deferred_frames_match_the_jax_golden(textured):
     """courtyard_scene(8) at 128x96, three frames (the golden's

@@ -1,4 +1,4 @@
-"""The program's spans and its host-to-device counter
+"""The program's spans and its copy counters
 (rayfinder_tpu_torch/utils/profiling.py), on the CPU at 32x24 on the plain
 engine, and the benchmark's readers of them (portbench/spans.py and the
 per-layer readers under portbench/metrics/) on made-up traces and records.
@@ -20,14 +20,15 @@ from rayfinder_tpu_torch.render.scene import build_device_scene
 from rayfinder_tpu_torch.scene.procedural import courtyard_scene
 from rayfinder_tpu_torch.tools import viewer
 from rayfinder_tpu_torch.utils import profiling
-from rayfinder_tpu_torch.utils.profiling import H2D_BYTES, Count, Span
+from rayfinder_tpu_torch.utils.profiling import D2H_BYTES, H2D_BYTES, Count, Span
 
 W, H = 32, 24
 SKY = Sky(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
 EXPOSURE = 0.25
 
 # (name, parent) of one frame's spans, in the order they open, on the CPU
-# (the card adds rf.pt.sync and rf.deferred.sync before the readback).
+# (the card adds rf.pt.sync before the path tracer's readback, and
+# rf.deferred.sync after the deferred frame's).
 PT_SPANS = [("rf.pt.render", None), ("rf.pt.lanes", "rf.pt.render"),
             ("rf.pt.initial_state", "rf.pt.render"), ("rf.pt.k4", "rf.pt.render"),
             ("rf.pt.image", None), ("rf.pt.unswizzle", "rf.pt.image"),
@@ -35,8 +36,8 @@ PT_SPANS = [("rf.pt.render", None), ("rf.pt.lanes", "rf.pt.render"),
 DEFERRED_SPANS = [("rf.deferred.frame", None), ("rf.deferred.gbuffer", "rf.deferred.frame"),
                   ("rf.deferred.lighting", "rf.deferred.frame"),
                   ("rf.deferred.resolve", "rf.deferred.frame"),
-                  ("rf.deferred.readback", "rf.deferred.frame"),
-                  ("rf.deferred.to_float", "rf.deferred.frame")]
+                  ("rf.deferred.to_float", "rf.deferred.frame"),
+                  ("rf.deferred.readback", "rf.deferred.frame")]
 
 
 @pytest.fixture(scope="module")
@@ -139,8 +140,23 @@ def test_h2d_bytes_are_the_listed_uploads(scene, case):
     with profiling.recording() as rec:
         step()
     counts = [c for c in rec.records() if isinstance(c, Count)]
-    assert all(c.name == H2D_BYTES for c in counts)
-    assert sum(c.n for c in counts) == want
+    assert {c.name for c in counts} <= {H2D_BYTES, D2H_BYTES}
+    assert sum(c.n for c in counts if c.name == H2D_BYTES) == want
+
+
+@pytest.mark.parametrize("case", ["pt_batch", "deferred_frame"])
+def test_d2h_bytes_are_the_deferred_frame(scene, case):
+    """rf.d2h_bytes: one count a deferred frame, the bytes of its (H, W, 3)
+    float32 image copied to the host; none over a path tracer's batch."""
+    if case == "pt_batch":
+        r = _renderer(scene)
+        step, want = (lambda: _pt_batch(r)), []  # noqa: E731
+    else:
+        dr = DeferredRenderer(scene, W, H, engine="plain")
+        step, want = (lambda: _deferred_frame(dr)), [H * W * 3 * 4]  # noqa: E731
+    with profiling.recording() as rec:
+        step()
+    assert [c.n for c in rec.records() if isinstance(c, Count) and c.name == D2H_BYTES] == want
 
 
 def test_spans_reach_the_profilers_trace(scene, tmp_path):
