@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times
+    python3 chip_smoke.py --street
 
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (nvcc). It imports only the port. It builds the port's CUDA
@@ -168,6 +169,12 @@ built courtyard), and
 prints their kernel numbers as one JSON line. Those phases use nothing
 that the port lacked before its packed walk tables, so a copy of this
 script times an older tree in turns with a newer one.
+
+--street only loads the benchmark's production-size street (configuration
+street2m8_tex_pt_1080p; its .pt written into portbench/cache/ on a
+checkout's first run) and prints one line: its triangles, the tree's depth,
+the sizes of its tables, and the times of the .pt's writing and of
+load_device_scene's phases.
 """
 
 from __future__ import annotations
@@ -2903,10 +2910,52 @@ def _phase12(scene26, scene8, camera, dev, card: str) -> dict:
     return numbers
 
 
+def _street_line(dev) -> None:
+    """The benchmark's production-size street (portbench/scenes/street.py,
+    configuration street2m8_tex_pt_1080p) through the asset path: its .pt
+    written (once per checkout, into portbench/cache/) and loaded onto the
+    card; one line of its triangles, tree depth, table sizes and times."""
+    import json
+
+    import torch
+
+    from portbench import assets
+    from rayfinder_tpu_torch.render.scene import load_device_scene
+    from rayfinder_tpu_torch.utils import profiling
+
+    sys.path.insert(0, str(GOLDENS.parent))
+    from torch_deep_scene import bvh_depth
+
+    cfg = json.loads((ROOT / "portbench/configs/street2m8_tex_pt_1080p.json").read_text())
+    t0 = time.perf_counter()
+    written = not assets.pt_path(cfg).exists()
+    pt = assets.write_pt(cfg)
+    write_s = time.perf_counter() - t0 if written else 0.0
+    t0 = time.perf_counter()
+    with profiling.recording() as rec:
+        scene = load_device_scene(pt, device=dev)
+        torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    phases = " ".join(f"{r.name.removeprefix('rf.scene.')} {r.t1 - r.t0:.2f} s"
+                      for r in rec.records() if isinstance(r, profiling.Span))
+    depth = bvh_depth(scene.bvh_tri_count.cpu().numpy(), scene.bvh_second_child.cpu().numpy())
+    walk = _nbytes(scene.bvh_nodes2) + _nbytes(scene.tri_pos4)
+    print(f"street: {scene.num_triangles} triangles, {scene.bvh_nodes2.shape[0]} records, tree "
+          f"depth {depth} (the walks' 32-entry stack drops no push below depth 34); "
+          f"bvh_nodes2 {_nbytes(scene.bvh_nodes2)} + tri_pos4 {_nbytes(scene.tri_pos4)} = {walk} "
+          f"bytes of walk tables, tri_attrs {_nbytes(scene.tri_attrs)}, texels "
+          f"{_nbytes(scene.texels)}, cluster tables {_scene_bytes(scene, CLUSTER_TABLES)} bytes; "
+          f".pt {pt.stat().st_size} bytes, written in {write_s:.2f} s; load_device_scene "
+          f"{load_s:.2f} s ({phases}), peak {torch.cuda.max_memory_allocated(dev)} bytes",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
                     help="phases 1, 2, 5's instrumented dispatches, 6 and 8 only")
+    ap.add_argument("--street", action="store_true",
+                    help="only the benchmark's street: load it and print its line")
     args = ap.parse_args(argv)
     full = not args.kernel_times
 
@@ -2929,6 +2978,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = _card()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if args.street:
+        _street_line(dev)
+        return 0
 
     # --- 1. build -----------------------------------------------------------
     t_start = time.perf_counter()

@@ -63,8 +63,11 @@
 // Both kernels count the rays they trace, as the split route's loop does:
 // one closest segment per closest walk, one NEE shadow ray per surface hit,
 // counted at the hit (not where add_nee resolves it, so that a sample whose
-// NEE crosses a call boundary is counted once). A thread keeps two counters;
-// at its end each warp adds its sums to a (2,) int64 tensor with one
+// NEE crosses a call boundary is counted once); and the interior records
+// that their walks read, closest and shadow (traverse2.cuh CountedView,
+// walk_packed's counting level 1), which tells a walk that reads more
+// records from one whose records cost more. A thread keeps three counters;
+// at its end each warp adds its sums to a (3,) int64 tensor with one
 // atomicAdd per counter. Integer sums: any order gives the same totals.
 //
 // What bounds both: the two BVH walks per round, which diverge (lanes of a
@@ -135,21 +138,28 @@ __device__ __forceinline__ void shade_no_hit(const rf::ShadeView& sh, const rf::
             &st->shadow_o, &st->shadow_d, &st->contrib);
 }
 
-// Add a warp's ray counts to ray_counts = [closest, shadow]. Every thread of
-// the warp calls it.
+// Add a warp's counts to ray_counts = [closest, shadow, records]. Every
+// thread of the warp calls it. A thread's records stay below 2^32 (a few
+// hundred records a ray); the warp's sum is taken in 64 bits.
 __device__ __forceinline__ void add_ray_counts(unsigned closest, unsigned shadow,
+                                               unsigned records,
                                                unsigned long long* ray_counts) {
   closest = __reduce_add_sync(kFullWarp, closest);
   shadow = __reduce_add_sync(kFullWarp, shadow);
+  unsigned long long rec = records;
+  for (int lane = 16; lane > 0; lane >>= 1) rec += __shfl_down_sync(kFullWarp, rec, lane);
   if ((threadIdx.x & 31) == 0) {
     atomicAdd(ray_counts, static_cast<unsigned long long>(closest));
     atomicAdd(ray_counts + 1, static_cast<unsigned long long>(shadow));
+    atomicAdd(ray_counts + 2, rec);
   }
 }
 
 __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
-    rf::PackedView s, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
+    rf::PackedView view, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
     unsigned long long* __restrict__ ray_counts) {
+  unsigned records = 0;  // records read by this thread's walks
+  const rf::CountedView<rf::PackedView> s{view, &records};
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < n;
   const int nf = p.num_frames;
@@ -212,7 +222,7 @@ __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
     store_state(out, i, sample, st);
     rf::store3(out.lrad, i, lrad);
   }
-  add_ray_counts(closest, shadow, ray_counts);
+  add_ray_counts(closest, shadow, records, ray_counts);
 }
 
 // Resident blocks per SM that the items kernel is compiled for.
@@ -227,7 +237,8 @@ __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shad
     rf::PackedView view, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
     float* __restrict__ rad, unsigned long long* __restrict__ counter,
     unsigned long long* __restrict__ ray_counts) {
-  const rf::SharedStackView<kItemSharedEntries> s{view};
+  unsigned records = 0;  // records read by this thread's walks
+  const rf::CountedView<rf::SharedStackView<kItemSharedEntries>> s{{view}, &records};
   const int warp_lane = threadIdx.x & 31;
   const int nf = p.num_frames;
   const unsigned long long total = static_cast<unsigned long long>(n) * nf;
@@ -303,7 +314,7 @@ __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shad
     }
   }
   // The counter ran out for the whole warp at once: its threads leave together.
-  add_ray_counts(closest, shadow, ray_counts);
+  add_ray_counts(closest, shadow, records, ray_counts);
 }
 
 __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_fold_kernel(

@@ -304,6 +304,47 @@ __device__ __forceinline__ bool any_hit(const SharedStackView<kShared>& s, Vec3 
   return walk_packed<true, 0, kShared>(s.view, o, d, t_max, &t) >= 0;
 }
 
+// The walk of a PackedView, or of a SharedStackView with its shared entries.
+template <bool kAnyHit, int kCount>
+__device__ __forceinline__ int walk_view(const PackedView& s, Vec3 o, Vec3 d, float t_max,
+                                         float* t_out, int* records) {
+  return walk_packed<kAnyHit, kCount, 0>(s, o, d, t_max, t_out, records);
+}
+
+template <bool kAnyHit, int kCount, int kShared>
+__device__ __forceinline__ int walk_view(const SharedStackView<kShared>& s, Vec3 o, Vec3 d,
+                                         float t_max, float* t_out, int* records) {
+  return walk_packed<kAnyHit, kCount, kShared>(s.view, o, d, t_max, t_out, records);
+}
+
+// A view (PackedView or SharedStackView) whose walks also count the records
+// they read, at counting level 1, into the thread's running sum *records:
+// K4's walk counter. The walks are those of the view, step for step.
+template <class View>
+struct CountedView {
+  View view;
+  unsigned* records;
+};
+
+template <class View>
+__device__ __forceinline__ int closest_hit(const CountedView<View>& s, Vec3 o, Vec3 d,
+                                           float t_max, float* t_out) {
+  int records;
+  const int tri = walk_view<false, 1>(s.view, o, d, t_max, t_out, &records);
+  *s.records += static_cast<unsigned>(records);
+  return tri;
+}
+
+template <class View>
+__device__ __forceinline__ bool any_hit(const CountedView<View>& s, Vec3 o, Vec3 d,
+                                        float t_max) {
+  float t;
+  int records;
+  const bool hit = walk_view<true, 1>(s.view, o, d, t_max, &t, &records) >= 0;
+  *s.records += static_cast<unsigned>(records);
+  return hit;
+}
+
 // The view of the C entry points of K1-K5: the root's rows of the SoA
 // planes (box, tri_offset, tri_count) and the packed tables.
 inline PackedView make_packed(const float* aabb_min, const float* aabb_max,

@@ -29,7 +29,7 @@ from ..render.camera import Camera, primary_ray
 from ..render.rng import noise_of
 from ..render.scene import DeviceScene
 from ..render.shade import FRAC_1_PI, SOLAR_COS_THETA_MAX, SOLAR_INV_PDF
-from ..render.traverse import intersect_any, intersect_closest
+from ..render.traverse import intersect_any, intersect_closest, intersect_packed
 from ..sky.model import SkyState, sky_radiance_dir
 from . import _build
 
@@ -114,13 +114,21 @@ def primaries(camera, u, v_tex, noise_base, inv_dims, frame_base, spp, idx, samp
     return primary_ray(camera, u[idx], v_tex[idx], noise, inv_dims)
 
 
-def add_nee(scene, has_nee, srad, shadow_o, shadow_d, contrib, t_max):
+def add_nee(scene, has_nee, srad, shadow_o, shadow_d, contrib, t_max, records=None):
     """Resolve the pending NEE light samples (plain versions): where has_nee,
     srad + contrib * visible, the shadow ray traced only where the
-    contribution is non-zero."""
+    contribution is non-zero. With `records` (a (1,) int64 tensor), the
+    shadow rays walk by the kernels' rule (intersect_packed, the same
+    occlusion) and the interior records they read are added to it: one slab
+    test for the root and two per record."""
     occluded = torch.zeros(has_nee.shape[0], dtype=torch.bool, device=has_nee.device)
     shadow = torch.nonzero(has_nee & (contrib != 0.0).any(dim=1))[:, 0]
-    occluded[shadow] = intersect_any(scene, shadow_o[shadow], shadow_d[shadow], t_max)
+    if records is None:
+        occluded[shadow] = intersect_any(scene, shadow_o[shadow], shadow_d[shadow], t_max)
+    else:
+        occluded[shadow], _, _, tests = intersect_packed(
+            scene, shadow_o[shadow], shadow_d[shadow], t_max, any_hit=True)
+        records += ((tests.to(torch.int64) - 1) // 2).sum()
     visible = torch.where(occluded, 0.0, 1.0)[:, None]
     return torch.where(has_nee[:, None], srad + contrib * visible, srad)
 

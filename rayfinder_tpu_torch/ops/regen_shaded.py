@@ -24,7 +24,9 @@ loop (render/pathtracer.py) keeps its calls inside the cap: a dispatch from
 every lane's first sample in runs of `samples_per_call` samples, a call over
 lanes already in flight in chunks of `lanes_per_call` lanes (whole tiles).
 Both kernels count the rays they trace, and the call returns the counts
-with the lane state. The plain version
+with the lane state; they also count the interior records their walks read
+(closest and shadow: walk_packed's counting level 1), which the call adds to
+`records` where the caller passes one. The plain version
 `trace_regen_shaded_reference` runs the same rounds in torch over the lanes
 of the tiles still running. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises.
@@ -77,7 +79,7 @@ def trace_regen_shaded(
     inv_dims: tuple[float, float], frame_base: int, spp: int, num_frames: int,
     num_bounces: int, live_floor: int, t_max: float,
     sample, bounce, flag, origin, direction, thr, srad, lrad,
-    shadow_o, shadow_d, contrib,
+    shadow_o, shadow_d, contrib, records=None,
 ):
     """Run the path loop with in-kernel shading until each 128-lane tile
     (lanes 128k .. 128k+127) has at most `live_floor` lanes with samples left
@@ -89,12 +91,14 @@ def trace_regen_shaded(
     still live carry their pending NEE sample (flag 1 or 2) to the next
     call; and, last, the rays this call traced, (2,) int64 [closest,
     shadow]: one per closest segment, one per surface hit (its NEE shadow
-    ray, counted at the hit)."""
+    ray, counted at the hit). `records`, a (1,) int64 tensor on the lanes'
+    device, gets the interior records that the call's walks read added to
+    it."""
     if u.device.type == "cpu":
         return trace_regen_shaded_reference(
             scene, camera, sky, u, v_tex, noise_base, inv_dims, frame_base, spp,
             num_frames, num_bounces, live_floor, t_max, sample, bounce, flag, origin,
-            direction, thr, srad, lrad, shadow_o, shadow_d, contrib,
+            direction, thr, srad, lrad, shadow_o, shadow_d, contrib, records,
         )
     dev = u.device
     n = u.shape[0]
@@ -106,7 +110,7 @@ def trace_regen_shaded(
         *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)),
         *(torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(8)),
     )
-    rays = torch.zeros(2, dtype=torch.int64, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # closest, shadow, records
     if n:
         params = _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
                          num_bounces=num_bounces, live_floor=live_floor)
@@ -128,11 +132,13 @@ def trace_regen_shaded(
                 *(tensor.data_ptr() for tensor, *_ in inputs),
                 *(out.data_ptr() for out in outputs),
                 *(t if t is None else t.data_ptr() for t in scratch),
-                rays.data_ptr(), _build.stream_of(dev),
+                counts.data_ptr(), _build.stream_of(dev),
             )
         _build.raise_on_error(err, "rf_trace_regen_shaded")
         trace_regen_shaded.launches += 1
-    return (*outputs, rays)
+        if records is not None:
+            records.add_(counts[2:])
+    return (*outputs, counts[:2])
 
 
 # Kernel launch count (a run resets and reads it to show which kernels it
@@ -145,11 +151,14 @@ def trace_regen_shaded_reference(
     inv_dims: tuple[float, float], frame_base: int, spp: int, num_frames: int,
     num_bounces: int, live_floor: int, t_max: float,
     sample, bounce, flag, origin, direction, thr, srad, lrad,
-    shadow_o, shadow_d, contrib,
+    shadow_o, shadow_d, contrib, records=None,
 ):
     """Plain torch version of `trace_regen_shaded`, on any device. Same
     arguments and results; the rounds of csrc/regen_shaded.cu over the
-    lanes of the tiles still running."""
+    lanes of the tiles still running. Given `records`, its walks count the
+    records that the kernel's read: a closest walk's from its plane walk's
+    visits (one node for the root and two per record), a shadow walk's from
+    the packed walk's plain version (ops/regen.py add_nee)."""
     nf = num_frames
     n = u.shape[0]
     dev = u.device
@@ -184,7 +193,7 @@ def trace_regen_shaded_reference(
 
         # 1. Pending NEE light sample of the previous segment.
         srad = add_nee(scene, live & (s["flag"] > 0), s["srad"], s["shadow_o"],
-                       s["shadow_d"], s["contrib"], t_max)
+                       s["shadow_d"], s["contrib"], t_max, records=records)
         # 2. Terminate after NEE: flush, finish the sample, regenerate.
         term = live & (s["flag"] == 2)
         lrad = torch.where(term[:, None], s["lrad"] + srad, s["lrad"])
@@ -195,8 +204,10 @@ def trace_regen_shaded_reference(
         # 3. One closest segment; a miss adds the sky, flushes, regenerates.
         flying = torch.nonzero(sample < nf)[:, 0]
         tri = torch.full_like(sample, -1)
-        hit, _, tri_f, _ = intersect_closest(scene, s["origin"][flying], s["direction"][flying],
-                                             t_max)
+        hit, _, tri_f, visits = intersect_closest(scene, s["origin"][flying],
+                                                  s["direction"][flying], t_max)
+        if records is not None:
+            records += ((visits.to(torch.int64) - 1) // 2).sum()
         tri[flying] = tri_f
         rays[0] += flying.numel()
         rays[1] += hit.sum()

@@ -371,6 +371,8 @@ class _Dispatch:
     num_bounces: int
     sun_dir: torch.Tensor
     solar: torch.Tensor
+    # (1,) int64 to which each K4 call adds the records its walks read, or None.
+    walk_records: torch.Tensor | None = None
 
     def pixel_args(self, lanes):
         return (self.scene, self.camera, self.sky, lanes["u"], lanes["v_tex"],
@@ -405,11 +407,13 @@ class _Dispatch:
     def shaded_call(self, st, lanes, lrad, live_floor, rays):
         """One K4 call down to `live_floor` live lanes per 128-lane tile; the
         rays it traced are added to `rays` ([closest, shadow])."""
+        counted = {} if self.walk_records is None else {"records": self.walk_records}
         with profiling.span("rf.pt.k4", device=True):
             out = self.kernels.shaded(
                 *self.pixel_args(lanes), self.num_bounces, live_floor, T_MAX,
                 st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"],
                 st["thr"], st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"],
+                **counted,
             )
             (st["sample"], st["bounce"], st["flag"], st["origin"], st["direction"], st["thr"],
              st["srad"], lrad, st["shadow_o"], st["shadow_d"], st["contrib"], traced) = out
@@ -907,13 +911,14 @@ def accumulate_lanes_regen(
     inkernel: bool | None = None,
     segs: int = 1,
     sort: bool = False,
+    walk_records: torch.Tensor | None = None,
 ):
     """Regeneration accumulation over an arbitrary set of lanes, each with
     its pixel's data: centre u, v_tex (B,) f32 and blue-noise tile value
     noise_base (B, 2); accum (B, 3) holds the lanes' pixels. inv_dims: 1 /
     width, 1 / height as float32 values. The lane-level entry of
     accumulate_samples_regen (and of a render split across devices), with
-    its engines, routes and return values."""
+    its engines, routes, walk_records and return values."""
     if engine not in _ENGINES and engine not in _UNFUSED:
         raise ValueError(
             f"unknown engine {engine!r}: the port has {sorted([*_ENGINES, *_UNFUSED])}"
@@ -933,7 +938,7 @@ def accumulate_lanes_regen(
         scene=scene, sky=sky, camera=camera, kernels=_ENGINES.get(engine), inv_dims=inv_dims,
         frame_base=frame_base, spp=spp, nf=num_frames, num_bounces=num_bounces,
         sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
-        solar=torch.as_tensor(sky.solar_radiances, device=dev),
+        solar=torch.as_tensor(sky.solar_radiances, device=dev), walk_records=walk_records,
     )
     profiling.count(H2D_BYTES, d.sun_dir.nbytes + d.solar.nbytes)
     lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
@@ -971,6 +976,7 @@ def accumulate_samples_regen(
     inkernel: bool | None = None,
     segs: int = 1,
     sort: bool = False,
+    walk_records: torch.Tensor | None = None,
 ):
     """Add samples frame_base .. frame_base + num_frames - 1 of every pixel
     into accum ((H*W, 3) f32, block-major pixel order, render/tiling.py)
@@ -981,7 +987,11 @@ def accumulate_samples_regen(
     count_rays=True also returns the exact int64 [closest, shadow] ray
     counts, on every route: one closest segment per traced segment plus one
     NEE shadow ray per surface hit, as the reference's megakernel traces
-    them (reference_path_tracer.wgsl:180-234).
+    them (reference_path_tracer.wgsl:180-234). walk_records, a (1,) int64
+    tensor on the scene's device, gets added the interior records that the
+    walks of every K4 call (kernel or plain) read, closest and shadow: all
+    of the dispatch's walks on the default route, those of the K4 phases on
+    the hybrid, none on the split and segs routes.
 
     engine="kernel" drives the fused loop through the CUDA path kernels;
     engine="plain" through their plain torch versions (any device), by the
@@ -1031,7 +1041,7 @@ def accumulate_samples_regen(
         scene, sky, camera, frame_base, accum, u, v_tex, noise_base, inv_dims,
         num_bounces=num_bounces, spp=spp, num_frames=num_frames, engine=engine,
         compact_floor=compact_floor, count_rays=count_rays, inkernel=inkernel, segs=segs,
-        sort=sort,
+        sort=sort, walk_records=walk_records,
     )
 
 

@@ -95,10 +95,13 @@ class Renderer:
 
     engine: "kernel" (default), "plain", "kernel_split" or "reference"; the
     accumulator is pick_accumulator's. count_rays: accumulate the exact
-    traced-segment counts in total_rays. Only the regeneration loop counts;
-    where the scan form is picked (big scenes on the unfused engines),
-    total_rays becomes None at the first render(), so that "not counted"
-    reads apart from 0 rays."""
+    traced-segment counts in total_rays, and the interior records that K4's
+    walks read (closest and shadow; every walk of the default route) in
+    total_walk_records, which each render() also adds to the counter
+    rf.walk_records (utils/profiling.py count). Only the regeneration loop
+    counts; where the scan form is picked (big scenes on the unfused
+    engines), both become None at the first render(), so that "not counted"
+    reads apart from 0."""
 
     def __init__(
         self,
@@ -111,6 +114,7 @@ class Renderer:
         self.engine = engine
         self._count_rays = count_rays
         self.total_rays = 0 if count_rays else None
+        self.total_walk_records = 0 if count_rays else None
         self._tile = torch.from_numpy(blue_noise_tile()).to(scene.device)
         self._durations = collections.deque(maxlen=30)
         self._params = params
@@ -159,15 +163,21 @@ class Renderer:
                 counting = self._count_rays and accumulate is accumulate_samples_regen
                 if counting:
                     kw["count_rays"] = True
+                    kw["walk_records"] = torch.zeros(1, dtype=torch.int64,
+                                                     device=self.scene.device)
                 elif self._count_rays:
-                    self.total_rays = None  # counting unavailable on this path
+                    # counting unavailable on this path
+                    self.total_rays = self.total_walk_records = None
                 out = accumulate(
                     self.scene, self._sky_state, p.camera, self._tile, self.frame_count,
                     self._accum, **kw,
                 )
                 if counting:
                     self._accum, rays = out
-                    self.total_rays += int(rays.sum())
+                    closest, shadow, records = torch.cat([rays, kw["walk_records"]]).tolist()
+                    self.total_rays += closest + shadow
+                    self.total_walk_records += records
+                    profiling.count(profiling.WALK_RECORDS, records)
                 else:
                     self._accum = out
                 self.accumulated_sample_count += to_add

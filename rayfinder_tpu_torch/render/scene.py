@@ -59,6 +59,7 @@ import torch
 from ..bvh import Bvh, reorder_attributes
 from ..bvh.clusters import DEFAULT_LEAF_SIZE, build_clusters, treelet_ranges
 from ..scene import FlattenedScene, Texture
+from ..utils import profiling
 
 # Packed-texel-atlas budget, as in rayfinder_tpu.render.scene (the
 # reference's storage-buffer binding limit for its texture buffer).
@@ -237,13 +238,17 @@ def _cluster_tables(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 
 def _upload(arrays: dict[str, np.ndarray], device) -> DeviceScene:
-    arrays = {**arrays, **_walk_tables(arrays), **_cluster_tables(arrays)}
+    """The walk and cluster tables built (span rf.scene.tables), then every
+    field copied to `device` (rf.scene.upload)."""
+    with profiling.span("rf.scene.tables"):
+        arrays = {**arrays, **_walk_tables(arrays), **_cluster_tables(arrays)}
     fields = {}
-    for name in tensor_fields():
-        a = np.asarray(arrays[name])
-        if name == "texels":
-            a = a.astype(np.uint32).view(np.int32)
-        fields[name] = torch.from_numpy(np.array(a, order="C")).to(device)
+    with profiling.span("rf.scene.upload"):
+        for name in tensor_fields():
+            a = np.asarray(arrays[name])
+            if name == "texels":
+                a = a.astype(np.uint32).view(np.int32)
+            fields[name] = torch.from_numpy(np.array(a, order="C")).to(device)
     return DeviceScene(**fields)
 
 
@@ -272,12 +277,16 @@ def scene_from_jax(arrays: dict[str, np.ndarray], device="cuda") -> DeviceScene:
 
 
 def load_device_scene(path, device="cuda") -> DeviceScene:
-    """Load a .glb/.gltf or .pt file straight into a DeviceScene."""
+    """Load a .glb/.gltf or .pt file straight into a DeviceScene. Its
+    phases are spans: rf.scene.read (the file read, and for a glTF its
+    flattening and BVH build), rf.scene.tables and rf.scene.upload
+    (_upload)."""
     path = pathlib.Path(path)
     if path.suffix == ".pt":
         from ..io.ptformat import read_pt
 
-        pt = read_pt(path)
+        with profiling.span("rf.scene.read"):
+            pt = read_pt(path)
         flat = FlattenedScene(
             positions=pt.tri_positions,
             normals=pt.tri_normals,
@@ -290,10 +299,13 @@ def load_device_scene(path, device="cuda") -> DeviceScene:
             triangle_indices=np.arange(pt.tri_positions.shape[0], dtype=np.int64),
         )
         return build_device_scene(flat, bvh=bvh, textures=pt.textures, device=device)
+    from ..bvh.native import build_bvh_fast
     from ..scene import load_gltf
 
-    scene = load_gltf(path)
-    flat = FlattenedScene.from_scene(scene)
+    with profiling.span("rf.scene.read"):
+        scene = load_gltf(path)
+        flat = FlattenedScene.from_scene(scene)
+        bvh = build_bvh_fast(flat.positions)
     return build_device_scene(
-        flat, textures=scene.base_color_textures, device=device
+        flat, bvh=bvh, textures=scene.base_color_textures, device=device
     )

@@ -261,8 +261,15 @@ def main(argv=None) -> int:
     scene_arg = str(args.scene)
     if scene_arg.startswith("procedural:") and scene_arg.split(":")[1] != "courtyard":
         parser.error(f"unknown procedural scene {scene_arg.split(':')[1]!r}")
-    scene = load_scene(scene_arg, args.device, textured=True)
+    # The load's phases (render/scene.py load_device_scene's spans), on the
+    # host clock.
+    with profiling.recording() as load:
+        scene = load_scene(scene_arg, args.device, textured=True)
     print(f"scene: {scene.num_triangles} triangles; writing {args.output}")
+    phases = [f"{s.name.removeprefix('rf.scene.')}={1e3 * (s.t1 - s.t0):.0f}ms"
+              for s in load.records() if isinstance(s, profiling.Span)]
+    if phases:
+        print("scene load: " + " ".join(phases))
 
     session = ViewerSession(
         scene,

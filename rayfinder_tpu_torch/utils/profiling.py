@@ -28,6 +28,8 @@ import torch
 H2D_BYTES = "rf.h2d_bytes"
 # The bytes of the deferred renderer's frame that it copies to the host.
 D2H_BYTES = "rf.d2h_bytes"
+# The interior BVH records that K4's walks read (Renderer(count_rays=True)).
+WALK_RECORDS = "rf.walk_records"
 
 
 class PassTimer:

@@ -204,6 +204,32 @@ def test_route_kernels_match_plain(dev, textured4, route):
     assert torch.equal(k_rays, p_rays) and torch.equal(k_rays, s_rays)
 
 
+@pytest.mark.parametrize("route", [dict(), dict(inkernel=True, compact_floor=16)])
+def test_k4_walk_records_equal_plain(dev, textured4, route):
+    """K4 counts the interior records its walks read (closest and shadow),
+    the work items at floor 0 (the default route) and the tile kernel above
+    it (the hybrid's compacted phases): the same count as its plain version
+    on the textured courtyard, beside equal ray counts."""
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    w, h, spp = 64, 48, 4
+    cam = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+    counted = {}
+    for engine in ("kernel", "plain"):
+        records = torch.zeros(1, dtype=torch.int64, device=dev)
+        _, rays = accumulate_samples_regen(
+            textured4, sky, cam, tile, 0, torch.zeros(w * h, 3, device=dev), width=w,
+            height=h, num_bounces=4, spp=spp, num_frames=spp, engine=engine, count_rays=True,
+            walk_records=records, **route)
+        counted[engine] = (rays.tolist(), int(records))
+    assert counted["kernel"] == counted["plain"] and counted["kernel"][1] > 0
+
+
 def _regen(scene, dev, w, h, spp, engine="kernel", start=None, frame_base=0, **kw):
     """One dispatch of the bench view through accumulate_samples_regen, with
     exact ray counts."""
