@@ -74,7 +74,7 @@ from .shade import (  # noqa: F401
     _surface_interaction,
 )
 from .texture_eval import eval_texture
-from .tiling import block_order, unswizzle
+from .tiling import block_order_on, unswizzle
 from .tonemap import tonemap
 from .traverse import intersect_any, intersect_closest
 from .wavefront import intersect_any_wavefront, intersect_closest_wavefront
@@ -322,10 +322,10 @@ def _scan_frames(scene, sky, camera, tile, frame_base: int, accum, ys, xs, *, wi
 
 
 def _pixels(width: int, height: int, dev, x0: int = 0, y0: int = 0):
-    """(ys, xs) of a width x height window at (x0, y0), in block order."""
-    ys_np, xs_np, _ = block_order(width, height)
-    profiling.count(H2D_BYTES, ys_np.nbytes + xs_np.nbytes)
-    return torch.from_numpy(ys_np).to(dev) + y0, torch.from_numpy(xs_np).to(dev) + x0
+    """(ys, xs) of a width x height window at (x0, y0), in block order: the
+    cached tables of render/tiling.py, read-only, offset on the device."""
+    ys, xs, _ = block_order_on(width, height, dev)
+    return (ys + y0 if y0 else ys), (xs + x0 if x0 else xs)
 
 
 def accumulate_sample(

@@ -57,12 +57,27 @@ def block_order(width: int, height: int):
     return ys, xs, (ys.astype(np.int64) * width + xs).astype(np.int32)
 
 
+def block_order_on(width: int, height: int, device):
+    """block_order's (ys, xs, pixel_idx) as tensors on `device`: ys and xs
+    int32, pixel_idx int64 (the scatter's index). Built and uploaded once per
+    (width, height, device) and kept; read-only, so no caller writes into
+    them."""
+    return _block_order_on(width, height, torch.device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _block_order_on(width: int, height: int, device: torch.device):
+    ys, xs, pixel_idx = block_order(width, height)
+    idx = pixel_idx.astype(np.int64)
+    profiling.count(profiling.PIXEL_TABLES, 1)
+    profiling.count(profiling.H2D_BYTES, ys.nbytes + xs.nbytes + idx.nbytes)
+    # torch.tensor copies, so the CPU's tensors do not share block_order's arrays.
+    return tuple(torch.tensor(a, device=device) for a in (ys, xs, idx))
+
+
 def unswizzle(flat_block_ordered, width: int, height: int):
     """(H*W, ...) block-ordered tensor -> row-major flat order."""
-    _, _, pixel_idx = block_order(width, height)
-    idx_np = pixel_idx.astype(np.int64)
-    profiling.count(profiling.H2D_BYTES, idx_np.nbytes)
-    idx = torch.from_numpy(idx_np).to(flat_block_ordered.device)
+    _, _, idx = block_order_on(width, height, flat_block_ordered.device)
     out = torch.empty_like(flat_block_ordered)
     out[idx] = flat_block_ordered
     return out

@@ -26,6 +26,8 @@ import torch
 
 # The bytes of host arrays that the frame path copies to the scene's device.
 H2D_BYTES = "rf.h2d_bytes"
+# Builds of the pixel tables on a device (render/tiling.py block_order_on).
+PIXEL_TABLES = "rf.pixel_tables"
 # The bytes of the deferred renderer's frame that it copies to the host.
 D2H_BYTES = "rf.d2h_bytes"
 # The interior BVH records that K4's walks read (Renderer(count_rays=True)).

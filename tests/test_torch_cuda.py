@@ -1100,33 +1100,56 @@ def _bench_view(w, h):
 
 
 def test_h2d_counter_equals_the_traced_copies(dev, scene8, tmp_path):
-    """rf.h2d_bytes over one 1920x1080 render(8) + image_u8() is within 1% of
-    the bytes of the host-to-device copies in a torch.profiler chrome trace
-    of the same calls (the counter leaves out the camera's vectors)."""
+    """rf.h2d_bytes over the first 1920x1080 render(8) + image_u8() is within
+    1% of the bytes of the host-to-device copies in a torch.profiler chrome
+    trace of the same calls (the counter leaves out the camera's vectors),
+    and holds the pixel tables' one upload; a second batch copies nothing
+    over 1 KiB to the card, and its image_u8() is the accumulation
+    unswizzled through a fresh numpy int64 index."""
     import json
 
+    from rayfinder_tpu_torch.render import tiling
     from rayfinder_tpu_torch.render.pathtracer import SamplingParams
-    from rayfinder_tpu_torch.render.renderer import Renderer, RenderParameters
+    from rayfinder_tpu_torch.render.renderer import Renderer, RenderParameters, _display_u8
     from rayfinder_tpu_torch.utils import profiling
 
     camera, sky = _bench_view(1920, 1080)
+    warm = Renderer(scene8, RenderParameters(64, 32, camera, SamplingParams(64, 4), sky, 0.25))
+    warm.render(8)
+    warm.image_u8()
+    tiling._block_order_on.cache_clear()
     r = Renderer(scene8, RenderParameters(1920, 1080, camera, SamplingParams(64, 4), sky, 0.25))
-    r.render(8)
-    r.image_u8()
     profiling.PROFILED.take()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        r.render(8)
-        r.image_u8()
-    counted = sum(c.n for c in profiling.PROFILED.take()
-                  if isinstance(c, profiling.Count) and c.name == profiling.H2D_BYTES)
-    path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
-    copies = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
-    copied = sum(int(e["args"]["bytes"]) for e in copies)
-    print(f"rf.h2d_bytes {counted}, HtoD copies {len(copies)} of {copied} bytes")
-    assert counted > 33_000_000 and abs(counted - copied) <= 0.01 * copied
+
+    def traced_batch(name):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            r.render(8)
+            img = r.image_u8()
+        records = profiling.PROFILED.take()
+        path = tmp_path / f"{name}.json"
+        prof.export_chrome_trace(str(path))
+        copies = [int(e["args"]["bytes"]) for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+        counted = {n: sum(c.n for c in records if isinstance(c, profiling.Count) and c.name == n)
+                   for n in (profiling.H2D_BYTES, profiling.PIXEL_TABLES)}
+        return img, copies, counted
+
+    _, copies, counted = traced_batch("first")
+    copied = sum(copies)
+    print(f"first batch: rf.h2d_bytes {counted}, HtoD copies {len(copies)} of {copied} bytes")
+    assert counted[profiling.PIXEL_TABLES] == 1
+    assert counted[profiling.H2D_BYTES] > 33_000_000
+    assert abs(counted[profiling.H2D_BYTES] - copied) <= 0.01 * copied
+    img, copies, counted = traced_batch("second")
+    print(f"second batch: rf.h2d_bytes {counted}, HtoD copies {copies}")
+    assert counted[profiling.PIXEL_TABLES] == 0 and counted[profiling.H2D_BYTES] < 1024
+    assert max(copies, default=0) <= 1024
+    idx = torch.from_numpy(tiling.block_order(1920, 1080)[2].astype(np.int64)).to(dev)
+    flat = torch.empty_like(r._accum)
+    flat[idx] = r._accum
+    want = _display_u8(flat / float(r.accumulated_sample_count), 0.25)
+    np.testing.assert_array_equal(img, want.reshape(1080, 1920, 3).cpu().numpy())
 
 
 def test_deferred_pass_spans_lie_inside_the_frame(dev, scene8):

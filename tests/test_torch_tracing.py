@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from portbench import cells, trace
+from rayfinder_tpu_torch.render import tiling
 from rayfinder_tpu_torch.render.camera import create_camera
 from rayfinder_tpu_torch.render.deferred import DeferredRenderer
 from rayfinder_tpu_torch.render.pathtracer import SamplingParams
@@ -20,7 +21,7 @@ from rayfinder_tpu_torch.render.scene import build_device_scene
 from rayfinder_tpu_torch.scene.procedural import courtyard_scene
 from rayfinder_tpu_torch.tools import viewer
 from rayfinder_tpu_torch.utils import profiling
-from rayfinder_tpu_torch.utils.profiling import D2H_BYTES, H2D_BYTES, Count, Span
+from rayfinder_tpu_torch.utils.profiling import D2H_BYTES, H2D_BYTES, PIXEL_TABLES, Count, Span
 
 W, H = 32, 24
 SKY = Sky(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
@@ -118,18 +119,23 @@ def test_recording_holds_the_spans_in_order(scene, kind):
     assert rec.take() and not rec.records()
 
 
-@pytest.mark.parametrize("case", ["pt_batch", "deferred_new_sky", "deferred_same_sky"])
+@pytest.mark.parametrize("case", ["pt_batch", "pt_second_batch", "deferred_new_sky",
+                                  "deferred_same_sky"])
 def test_h2d_bytes_are_the_listed_uploads(scene, case):
-    """rf.h2d_bytes over one 32x24 batch: the pixel tables (int32 ys and xs)
-    and unswizzle's int64 index, plus the sky's sun direction and solar
-    radiances and the parked shadow direction of the initial state; over a
+    """rf.h2d_bytes over one 32x24 batch: the sky's sun direction and solar
+    radiances and the parked shadow direction of the initial state, and on
+    the first batch of a new image size the pixel tables (int32 ys and xs,
+    unswizzle's int64 index), which stay on the device after it; over a
     deferred frame the sky's four fields when the sky is new, else nothing."""
     sky = SKY.state()
-    if case == "pt_batch":
+    if case.startswith("pt"):
+        tiling._block_order_on.cache_clear()
         r = _renderer(scene)
+        if case == "pt_second_batch":
+            _pt_batch(r)
         step = lambda: _pt_batch(r)  # noqa: E731
-        want = (W * H * (4 + 4 + 8) + sky.sun_direction.nbytes + sky.solar_radiances.nbytes
-                + 3 * 4)
+        want = (sky.sun_direction.nbytes + sky.solar_radiances.nbytes + 3 * 4
+                + (W * H * (4 + 4 + 8) if case == "pt_batch" else 0))
     else:
         dr = DeferredRenderer(scene, W, H, engine="plain")
         if case == "deferred_same_sky":
@@ -140,7 +146,7 @@ def test_h2d_bytes_are_the_listed_uploads(scene, case):
     with profiling.recording() as rec:
         step()
     counts = [c for c in rec.records() if isinstance(c, Count)]
-    assert {c.name for c in counts} <= {H2D_BYTES, D2H_BYTES}
+    assert {c.name for c in counts} <= {H2D_BYTES, D2H_BYTES, PIXEL_TABLES}
     assert sum(c.n for c in counts if c.name == H2D_BYTES) == want
 
 
