@@ -892,26 +892,17 @@ def _probes(dev, card: str, scene) -> tuple[dict, dict]:
     return entry, numbers
 
 
-def _slice_dispatch(scene, camera, sky, tile, dev):
+def _slice_dispatch(scene, camera, sky, tile):
     """The slice's lanes in block order ({u, v_tex, noise_base}) and the
     dispatch of its first 16 samples through the "kernel" engine."""
-    import numpy as np
-    import torch
-
     from rayfinder_tpu_torch.render import pathtracer as pt
-    from rayfinder_tpu_torch.render.tiling import block_order
+    from rayfinder_tpu_torch.render.tiling import pixel_lanes
 
-    w, h = SLICE["width"], SLICE["height"]
-    ys_np, xs_np, _ = block_order(w, h)
-    ys, xs = torch.from_numpy(ys_np).to(dev), torch.from_numpy(xs_np).to(dev)
-    lanes = dict(u=(xs.float() + 0.5) / float(w), v_tex=(ys.float() + 0.5) / float(h),
-                 noise_base=tile[(ys % 128).long(), (xs % 128).long()].contiguous())
+    u, v_tex, noise_base, inv_dims = pixel_lanes(SLICE["width"], SLICE["height"], tile)
+    lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
     disp = pt._Dispatch(
-        scene=scene, sky=sky, camera=camera, kernels=pt._ENGINES["kernel"],
-        inv_dims=(float(np.float32(1) / np.float32(w)), float(np.float32(1) / np.float32(h))),
+        scene=scene, sky=sky, camera=camera, kernels=pt._ENGINES["kernel"], inv_dims=inv_dims,
         frame_base=0, spp=SLICE["spp"], nf=SLICE["num_frames"], num_bounces=SLICE["num_bounces"],
-        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
-        solar=torch.as_tensor(sky.solar_radiances, device=dev),
     )
     return lanes, disp
 
@@ -924,7 +915,7 @@ def _k3_args(scene, camera, sky, tile, dev) -> tuple:
 
     from rayfinder_tpu_torch.ops.regen import trace_regen
     from rayfinder_tpu_torch.render.intersect import T_MAX
-    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile)
     n = lanes["u"].shape[0]
     sample = torch.zeros(n, dtype=torch.int32, device=dev)
     o0, d0 = disp.primary(lanes, sample)
@@ -950,7 +941,7 @@ def _k5_args(scene, camera, sky, tile, dev) -> tuple:
     from rayfinder_tpu_torch.render import pathtracer as pt
     from rayfinder_tpu_torch.render.intersect import T_MAX
 
-    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile)
     n = lanes["u"].shape[0]
     st = pt._initial_slots(disp, lanes, n, 2, dev)
     lrad1, flags = disp.segs_step(st, lanes, torch.zeros(n, 3, device=dev))
@@ -967,7 +958,7 @@ def _k4_args(scene, camera, sky, tile, dev) -> tuple:
     from rayfinder_tpu_torch.render import pathtracer as pt
     from rayfinder_tpu_torch.render.intersect import T_MAX
 
-    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile)
     n = lanes["u"].shape[0]
     sizes = pt._phase_sizes(n, pt._COMPACT_FLOOR)
     st = pt._initial_state(disp, lanes, n, dev)
@@ -987,7 +978,7 @@ def _k4_full_args(scene, camera, sky, tile, dev) -> tuple:
     from rayfinder_tpu_torch.render import pathtracer as pt
     from rayfinder_tpu_torch.render.intersect import T_MAX
 
-    lanes, disp = _slice_dispatch(scene, camera, sky, tile, dev)
+    lanes, disp = _slice_dispatch(scene, camera, sky, tile)
     n = lanes["u"].shape[0]
     st = pt._initial_state(disp, lanes, n, dev)
     return (*disp.pixel_args(lanes), disp.num_bounces, 0, T_MAX, st["sample"], st["bounce"],

@@ -40,7 +40,7 @@
 // 0.710 ms for one thread per lane over this walk; warps taking 32
 // (lane, round) items at a time from a counter, with a scratch and a fold
 // kernel, read 0.777 / 0.433 ms; 8 or 16 stack entries in shared memory
-// made every form 10-25% slower (prof/walk_probe.py sky-forms; PERF.md).
+// made every form 10-25% slower (PERF.md).
 //
 // fullwhile keeps one thread per lane and 128-lane blocks: its group is the
 // block, its vote __syncthreads_or once per round, so threads past n stay in

@@ -13,8 +13,8 @@
 // against the best t so far, and the same behaviour when the stack is full
 // (a push at depth 32 is dropped, the pointer still moves). Every kernel
 // walks it over the packed tables (traverse2.cuh walk_packed); the walk
-// over the SoA planes that the kernels ran before survives only as the
-// probe's baseline form (prof/walk_probe.cu).
+// over the SoA planes that the kernels ran before lives on only in torch
+// (render/traverse.py _walk).
 //
 // Numerics: every product and sum is rounded on its own, in the order the
 // torch version evaluates it. The build passes --fmad=false, so nvcc does

@@ -4,8 +4,7 @@
 // (skyround.cu), over the packed walk tables: two-child 64-byte node records
 // and 16-byte triangle rows, read with 16-byte loads. Same results as the
 // plane walk over the SoA planes (render/traverse.py _walk, the plain
-// specification; prof/walk_probe.cu keeps it in CUDA as the probes' baseline
-// form), and as its own plain torch version (render/traverse.py
+// specification), and as its own plain torch version (render/traverse.py
 // intersect_packed, which holds the same rule).
 //
 // Tables (built at upload, render/scene.py _walk_tables):

@@ -34,7 +34,7 @@
 // memory were 2-7% slower on K1 (8 and 12 2% faster on K2), blocks of 64
 // the same and of 256 1-6% faster (the shared stack is laid out for the
 // library's one block size), a persistent grid that refills idle lanes
-// from a counter 1-6% slower (prof/walk_probe.py forms; PERF.md). K6 on
+// from a counter 1-6% slower (PERF.md). K6 on
 // the plane walk read 0.085 ms on 262,144 coherent primaries.
 //
 // Plain C interface, loaded with ctypes (rayfinder_tpu_torch/ops/walk.py,

@@ -181,22 +181,6 @@ def _pointers(scene, device, tables) -> list:
     return args
 
 
-def scene_args(scene, device) -> list:
-    """The pointers of the scene's SoA planes and triangle positions and its
-    triangle count, after checking them: the arguments of the plane walk,
-    which only the probe (prof/walk_probe.cu) still runs."""
-    n, t = scene.num_nodes, scene.num_triangles
-    return _pointers(scene, device, (
-        ("bvh_aabb_min", torch.float32, (n, 3)),
-        ("bvh_aabb_max", torch.float32, (n, 3)),
-        ("bvh_tri_offset", torch.int32, (n,)),
-        ("bvh_second_child", torch.int32, (n,)),
-        ("bvh_tri_count", torch.int32, (n,)),
-        ("bvh_split_axis", torch.int32, (n,)),
-        ("tri_positions", torch.float32, (t, 3, 3)),
-    )) + [t]
-
-
 def packed_args(scene, device) -> list:
     """The pointer and triangle-count arguments of the packed walk
     (csrc/traverse2.cuh), after checking its tables: the SoA planes that

@@ -30,7 +30,7 @@ from ..render.rng import noise_of
 from ..render.scene import DeviceScene
 from ..render.shade import FRAC_1_PI, SOLAR_COS_THETA_MAX, SOLAR_INV_PDF
 from ..render.traverse import intersect_any, intersect_closest, intersect_packed
-from ..sky.model import SkyState, sky_radiance_dir
+from ..sky.model import SkyState, sky_on_device, sky_radiance_dir
 from . import _build
 
 __all__ = ["trace_regen", "trace_regen_reference"]
@@ -207,6 +207,7 @@ def trace_regen_reference(
     thr, srad, lrad = thr.clone(), srad.clone(), lrad.clone()
     n = u.shape[0]
     dev = u.device
+    sky = sky_on_device(sky, dev)
 
     def regenerate(idx):
         """Start the next sample of lanes idx: fresh primary, unit

@@ -28,7 +28,7 @@ import torch
 from ..render.camera import Camera
 from ..render.scene import DeviceScene
 from ..render.traverse import intersect_closest
-from ..sky.model import SkyState, sky_radiance_dir
+from ..sky.model import SkyState, sky_on_device, sky_radiance_dir
 from . import _build
 from .regen import _params, add_nee, primaries
 
@@ -122,6 +122,7 @@ def trace_regen_segs_reference(
     nf = num_frames
     n = u.shape[0]
     dev = u.device
+    sky = sky_on_device(sky, dev)
     salloc = salloc.clamp(max=nf)
     lrad = lrad.clone()
     cnt = slot_cnt.reshape(n, segs, 3)

@@ -43,7 +43,7 @@ from ..render.rng import noise_of
 from ..render.scene import DeviceScene
 from ..render.shade import _nee_and_continuation
 from ..render.traverse import intersect_closest
-from ..sky.model import SkyState, sky_radiance_dir
+from ..sky.model import SkyState, sky_on_device, sky_radiance_dir
 from . import _build
 from .regen import _params, add_nee, lane_inputs, primaries
 
@@ -114,7 +114,7 @@ def trace_regen_shaded(
     if n:
         params = _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
                          num_bounces=num_bounces, live_floor=live_floor)
-        scene_args = _build.packed_args(scene, dev) + _build.shade_args(scene, dev)
+        tables = _build.packed_args(scene, dev) + _build.shade_args(scene, dev)
         # Floor 0: the work items' radiance scratch and their counter.
         scratch = None, None
         if live_floor <= 0:
@@ -128,7 +128,7 @@ def trace_regen_shaded(
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_trace_regen_shaded(
-                *scene_args, ctypes.addressof(params), n,
+                *tables, ctypes.addressof(params), n,
                 *(tensor.data_ptr() for tensor, *_ in inputs),
                 *(out.data_ptr() for out in outputs),
                 *(t if t is None else t.data_ptr() for t in scratch),
@@ -166,8 +166,7 @@ def trace_regen_shaded_reference(
               direction=direction, thr=thr, srad=srad, lrad=lrad, shadow_o=shadow_o,
               shadow_d=shadow_d, contrib=contrib)
     st = {k: x.clone() for k, x in st.items()}
-    sun_dir = torch.as_tensor(sky.sun_direction, device=dev)
-    solar = torch.as_tensor(sky.solar_radiances, device=dev)
+    sky = sky_on_device(sky, dev)
     tile = torch.arange(n, device=dev) // TILE
     num_tiles = -(-n // TILE)
     rays = torch.zeros(2, dtype=torch.int64, device=dev)  # [closest, shadow]
@@ -223,7 +222,7 @@ def trace_regen_shaded_reference(
         (flag, origin, direction, thr, bounce, shadow_o, shadow_d, contrib
          ) = _nee_and_continuation(
             scene, noise, s["origin"], s["direction"], tri, s["thr"], s["bounce"],
-            sample < nf, sun_dir, solar, num_bounces,
+            sample < nf, sky.sun_direction, sky.solar_radiances, num_bounces,
         )
         new = dict(sample=sample, bounce=bounce, flag=flag, origin=origin,
                    direction=direction, thr=thr, srad=srad, lrad=lrad, shadow_o=shadow_o,

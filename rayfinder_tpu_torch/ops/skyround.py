@@ -38,7 +38,7 @@ from ..render.camera import Camera, primary_ray
 from ..render.rng import noise_of
 from ..render.scene import DeviceScene
 from ..render.traverse import intersect_closest
-from ..sky.model import SkyState, sky_radiance_dir
+from ..sky.model import SkyState, sky_on_device, sky_radiance_dir
 from . import _build
 from .regen import _params
 
@@ -68,6 +68,7 @@ def sky_round_reference(scene: DeviceScene, camera: Camera, sky: SkyState, u, v_
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     n = u.shape[0]
     dev = u.device
+    sky = sky_on_device(sky, dev)
     sample = torch.zeros(n, dtype=torch.int32, device=dev)
     o, d = _start(camera, u, v_tex, noise_base, inv_dims, sample)
     acc = torch.zeros(n, dtype=torch.float32, device=dev)

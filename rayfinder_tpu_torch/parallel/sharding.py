@@ -56,7 +56,7 @@ from ..render.camera import Camera
 from ..render.pathtracer import _scan_frames, accumulate_lanes_regen
 from ..render.rng import blue_noise_tile
 from ..render.scene import DeviceScene
-from ..render.tiling import block_order, unswizzle
+from ..render.tiling import pixel_lanes, unswizzle
 from ..render.tonemap import tonemap
 from ..sky.model import SkyState
 
@@ -274,9 +274,10 @@ def render_step_sharded_regen(
     route: the dispatch inside K4) over its pixel shard, tracing
     num_frames / samples_axis consecutive samples from frame_base + sample
     rank x that share, from a zero partial; the samples axis then sums the
-    partials. Pixels are in block-major order (render/tiling.block_order),
-    so each shard holds whole pixel blocks. accum: this rank's block-ordered
-    (P_padded / tiles, 3) shard. Returns the new shard.
+    partials. Pixels are in block-major order (render/tiling.pixel_lanes,
+    padded at pixel (0, 0) and made on the device from the tables uploaded
+    once per size), so each shard holds whole pixel blocks. accum: this
+    rank's block-ordered (P_padded / tiles, 3) shard. Returns the new shard.
 
     Per pixel, the partials and their sum group the samples differently
     from one device's loop, so the sums can differ by f32 ulps; on a 1x1
@@ -288,20 +289,11 @@ def render_step_sharded_regen(
                          f"({samples})")
     nf_local = num_frames // samples
     padded = accum.shape[0] * mesh.shape["tiles"]
-    ys_np, xs_np, _ = block_order(width, height)
-    pad = padded - width * height
-    ys = _shard(mesh, torch.from_numpy(np.pad(ys_np, (0, pad))).to(accum.device))
-    xs = _shard(mesh, torch.from_numpy(np.pad(xs_np, (0, pad))).to(accum.device))
-    u = (xs.to(torch.float32) + 0.5) / float(width)
-    v_tex = (ys.to(torch.float32) + 0.5) / float(height)
-    th, tw = blue_noise_tile.shape[0], blue_noise_tile.shape[1]
-    noise_base = blue_noise_tile[(ys % th).long(), (xs % tw).long()]
-    inv_dims = (float(np.float32(1.0) / np.float32(width)),
-                float(np.float32(1.0) / np.float32(height)))
+    u, v_tex, noise_base, inv_dims = pixel_lanes(width, height, blue_noise_tile, rows=padded)
     partial = accumulate_lanes_regen(
         scene, sky, camera, frame_base + mesh.sample_rank * nf_local, torch.zeros_like(accum),
-        u, v_tex, noise_base, inv_dims, num_bounces=num_bounces, spp=spp,
-        num_frames=nf_local, engine=engine)
+        _shard(mesh, u), _shard(mesh, v_tex), _shard(mesh, noise_base), inv_dims,
+        num_bounces=num_bounces, spp=spp, num_frames=nf_local, engine=engine)
     return accum + _sum_samples(mesh, partial)
 
 

@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from ..sky.model import SkyState, sky_radiance
+from ..sky.model import SkyState, sky_on_device, sky_radiance
 from ..utils import profiling
 from .camera import Camera, generate_camera_ray
 from .intersect import T_MAX, dot, offset_ray
@@ -158,8 +158,8 @@ def lighting_pass(
     noise = animated_blue_noise(ys, xs, int(frame_count), _NOISE_PERIOD, tile=tile)
 
     hit = gbuffer["hit"]
-    sun_dir = torch.as_tensor(sky.sun_direction, device=dev)
-    solar = torch.as_tensor(sky.solar_radiances, device=dev)
+    sky = sky_on_device(sky, dev)
+    sun_dir, solar = sky.sun_direction, sky.solar_radiances
 
     # Miss: sky WITH the solar disk (lighting_pass.wgsl:107-118).
     sky_rgb = _sky(sky, gbuffer["view_dir"], sun_dir)
@@ -247,14 +247,6 @@ def to_float(img8, table):
     return table.index_select(0, img8.reshape(-1).to(torch.int32)).reshape(img8.shape)
 
 
-def _on_device(sky: SkyState, dev) -> SkyState:
-    """The sky's fields as tensors on `dev`, so a frame copies nothing from
-    the host."""
-    fields = [np.asarray(f, np.float32) for f in sky]
-    profiling.count(profiling.H2D_BYTES, sum(f.nbytes for f in fields))
-    return SkyState(*(torch.as_tensor(f, device=dev) for f in fields))
-
-
 class DeferredRenderer:
     """Stateful frame loop with the reference's public API: render,
     render_debug, resize, invalidate_temporal_accumulation
@@ -290,7 +282,7 @@ class DeferredRenderer:
     def _device_sky(self, sky: SkyState) -> SkyState:
         key = tuple(np.asarray(f, np.float32).tobytes() for f in sky)
         if key != self._sky_key:
-            self._sky_key, self._sky = key, _on_device(sky, self.scene.device)
+            self._sky_key, self._sky = key, sky_on_device(sky, self.scene.device)
         return self._sky
 
     def render(self, camera: Camera, sky: SkyState, exposure: float = 1.0) -> np.ndarray:

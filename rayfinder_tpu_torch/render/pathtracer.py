@@ -45,6 +45,7 @@ before each bounce and puts the radiance back in pixel order at the end.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -59,7 +60,7 @@ from ..ops.walk import (
     intersect_any_kernel, intersect_any_reference,
     intersect_closest_kernel, intersect_closest_reference,
 )
-from ..sky.model import SkyState, sky_radiance_dist
+from ..sky.model import SkyState, sky_on_device, sky_radiance_dist
 from ..utils import profiling
 from ..utils.profiling import H2D_BYTES
 from .camera import Camera, generate_camera_ray_lens, primary_ray
@@ -74,7 +75,7 @@ from .shade import (  # noqa: F401
     _surface_interaction,
 )
 from .texture_eval import eval_texture
-from .tiling import block_order_on, unswizzle
+from .tiling import block_order_on, pixel_centres, pixel_lanes, unswizzle
 from .tonemap import tonemap
 from .traverse import intersect_any, intersect_closest
 from .wavefront import intersect_any_wavefront, intersect_closest_wavefront
@@ -174,20 +175,20 @@ class SamplingParams(NamedTuple):
     num_bounces: int = 4
 
 
-def _segment(scene, sky, sun, walks, origin, direction, thr, rad, noise, live):
+def _segment(scene, sky, walks, origin, direction, thr, rad, noise, live):
     """One path segment of the scan integrator and the unfused loop, for
     the lanes `live`: the closest hit (K1), at a miss the sky radiance
     without the sun (it arrives through NEE), at a hit the NEE sample
     toward the solar disk with its shadow ray (K2), added to rad in that
-    order, and the cosine scatter ray (wgsl:180-234). sun: the sky's
-    (sun_direction, solar_radiances) as tensors on the lanes' device.
+    order, and the cosine scatter ray (wgsl:180-234). sky: on the lanes'
+    device (sky_on_device).
 
     Returns (rad, hit_lane, p, wi, albedo, ray_ok): the hit lanes, the
     offset hit point, the scatter direction, the albedo, and whether p and
     wi are finite (degenerate shading normals give non-finite directions,
     which no kernel is handed)."""
     closest, any_hit = walks
-    sun_dir, solar = sun
+    sun_dir, solar = sky.sun_direction, sky.solar_radiances
     t_max = origin.new_full((origin.shape[0],), T_MAX)
     hit, _, tri, _ = closest(scene, origin, direction, t_max)
     hit_lane = live & hit
@@ -264,8 +265,7 @@ def trace_radiance(
     throughput = torch.ones(batch, 3, device=dev)
     alive = torch.ones(batch, dtype=torch.bool, device=dev)
     base_noise = noise
-    sun = (torch.as_tensor(sky.sun_direction, device=dev),
-           torch.as_tensor(sky.solar_radiances, device=dev))
+    sky = sky_on_device(sky, dev)
     sort_bounces = num_bounces > 1 and scene.num_clusters > SORT_THRESHOLD
     pixel_of = torch.arange(batch, device=dev)
     if sort_bounces:
@@ -278,6 +278,7 @@ def trace_radiance(
             # Rotate the pixel's noise point by the R2 sequence per bounce.
             shift = torch.tensor([np.float32(0.7548776662466927) * bounce,
                                   np.float32(0.5698402909980532) * bounce], device=dev)
+            profiling.count(H2D_BYTES, shift.nbytes)
             noise = base_noise + shift
             noise = noise - torch.floor(noise)
         if bounce > 1:
@@ -288,7 +289,7 @@ def trace_radiance(
                 x[order] for x in (origin, direction, radiance, throughput))
             alive, noise, pixel_of = (x[order] for x in (alive, noise, pixel_of))
         radiance, hit_lane, p, wi, albedo, ray_ok = _segment(
-            scene, sky, sun, walks, origin, direction, throughput, radiance, noise, alive)
+            scene, sky, walks, origin, direction, throughput, radiance, noise, alive)
         if bounce == num_bounces:
             break
         # Scatter: implicit-PDF Lambertian (wgsl:209-211, 294-301).
@@ -309,9 +310,10 @@ def _scan_frames(scene, sky, camera, tile, frame_base: int, accum, ys, xs, *, wi
     trace_radiance per sample (fsMain, wgsl:34-64): the fragment's texCoord
     jittered by the frame's noise over the image size, ray v = 1 - texCoord.y
     (wgsl:51-55), thin-lens primaries."""
-    u = (xs.to(torch.float32) + 0.5) / float(width)
-    v_tex = (ys.to(torch.float32) + 0.5) / float(height)
+    u, v_tex = pixel_centres(ys, xs, width, height)
     dims = torch.tensor([float(width), float(height)], device=accum.device)
+    profiling.count(H2D_BYTES, dims.nbytes)
+    sky = sky_on_device(sky, accum.device)
     for k in range(num_frames):
         noise = animated_blue_noise(ys, xs, frame_base + k, spp, tile=tile)
         jitter = noise / dims
@@ -369,10 +371,15 @@ class _Dispatch:
     spp: int
     nf: int  # samples per pixel in this dispatch
     num_bounces: int
-    sun_dir: torch.Tensor
-    solar: torch.Tensor
     # (1,) int64 to which each K4 call adds the records its walks read, or None.
     walk_records: torch.Tensor | None = None
+
+    @functools.cached_property
+    def device_sky(self) -> SkyState:
+        """The sky on the scene's device, for the torch code that reads it
+        (the shade step, the unfused loop). K3, K4 and K5 take the host
+        state's values in their parameter block."""
+        return sky_on_device(self.sky, self.scene.device)
 
     def pixel_args(self, lanes):
         return (self.scene, self.camera, self.sky, lanes["u"], lanes["v_tex"],
@@ -386,7 +393,7 @@ class _Dispatch:
         noise = noise_of(noise_base, self.frame_base, sample, self.spp)
         return _nee_and_continuation(
             self.scene, noise, origin, direction, tri, thr, bounce, sample < self.nf,
-            self.sun_dir, self.solar, self.num_bounces,
+            self.device_sky.sun_direction, self.device_sky.solar_radiances, self.num_bounces,
         )
 
     def split_step(self, st, lanes, lrad):
@@ -855,7 +862,7 @@ def _accumulate_unfused(d: _Dispatch, walks, accum, lanes, floor, count_rays):
         live = st["sample"] < d.nf
         origin = torch.where(live[:, None], st["origin"], PARK)
         srad, hit_lane, p, wi, albedo, ray_ok = _segment(
-            d.scene, d.sky, (d.sun_dir, d.solar), walks, origin, st["direction"], st["thr"],
+            d.scene, d.device_sky, walks, origin, st["direction"], st["thr"],
             st["srad"], st["noise"], live)
         if count_rays:
             counts.add_(torch.stack([live.sum(), hit_lane.sum()]))
@@ -933,14 +940,11 @@ def accumulate_lanes_regen(
         raise ValueError("sort is the split route's keyword (inkernel=False)")
     if inkernel is None:
         inkernel = segs == 1
-    dev = accum.device
     d = _Dispatch(
         scene=scene, sky=sky, camera=camera, kernels=_ENGINES.get(engine), inv_dims=inv_dims,
         frame_base=frame_base, spp=spp, nf=num_frames, num_bounces=num_bounces,
-        sun_dir=torch.as_tensor(sky.sun_direction, device=dev),
-        solar=torch.as_tensor(sky.solar_radiances, device=dev), walk_records=walk_records,
+        walk_records=walk_records,
     )
-    profiling.count(H2D_BYTES, d.sun_dir.nbytes + d.solar.nbytes)
     lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
     if engine in _UNFUSED:
         floor = _COMPACT_FLOOR if compact_floor is None else compact_floor
@@ -1026,19 +1030,10 @@ def accumulate_samples_regen(
     same loop over the plane walk (the JAX "reference"), engine="wavefront"
     over the cluster engine (render/wavefront.py); they take no route
     keyword."""
-    dev = accum.device
     with profiling.span("rf.pt.lanes"):
-        ys, xs = _pixels(width, height, dev)
-        u = (xs.to(torch.float32) + 0.5) / float(width)
-        v_tex = (ys.to(torch.float32) + 0.5) / float(height)
-        # The tile value is a function of the pixel: gather it once per call;
-        # each sample's noise is that base plus the frame's R2 offset.
-        th, tw = blue_noise_tile.shape[0], blue_noise_tile.shape[1]
-        noise_base = blue_noise_tile[(ys % th).long(), (xs % tw).long()]
-    inv_dims = (float(np.float32(1.0) / np.float32(width)),
-                float(np.float32(1.0) / np.float32(height)))
+        lanes = pixel_lanes(width, height, blue_noise_tile)
     return accumulate_lanes_regen(
-        scene, sky, camera, frame_base, accum, u, v_tex, noise_base, inv_dims,
+        scene, sky, camera, frame_base, accum, *lanes,
         num_bounces=num_bounces, spp=spp, num_frames=num_frames, engine=engine,
         compact_floor=compact_floor, count_rays=count_rays, inkernel=inkernel, segs=segs,
         sort=sort, walk_records=walk_records,

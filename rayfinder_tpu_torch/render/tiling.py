@@ -75,6 +75,33 @@ def _block_order_on(width: int, height: int, device: torch.device):
     return tuple(torch.tensor(a, device=device) for a in (ys, xs, idx))
 
 
+def pixel_centres(ys, xs, width: int, height: int):
+    """(u, v_tex): the float32 centres (x + 0.5) / width and (y + 0.5) /
+    height of the pixels (ys, xs)."""
+    return ((xs.to(torch.float32) + 0.5) / float(width),
+            (ys.to(torch.float32) + 0.5) / float(height))
+
+
+def pixel_lanes(width: int, height: int, tile, rows: int | None = None):
+    """A dispatch's lanes over every pixel of a width x height image, in
+    block order, from the cached tables on the blue-noise tile's device:
+    (u, v_tex, noise_base, inv_dims). u and v_tex are pixel_centres,
+    noise_base (P, 2) each pixel's value of `tile` (the base that every
+    sample's noise offsets), inv_dims 1 / width and 1 / height as float32
+    values. With `rows` the lanes are padded to that many rows, each padding
+    row at pixel (0, 0). Made per call on the device: nothing is copied
+    from the host after the tables' one upload."""
+    ys, xs, _ = block_order_on(width, height, tile.device)
+    if rows is not None and rows > ys.shape[0]:
+        pad = ys.new_zeros(rows - ys.shape[0])
+        ys, xs = torch.cat([ys, pad]), torch.cat([xs, pad])
+    u, v_tex = pixel_centres(ys, xs, width, height)
+    noise_base = tile[(ys % tile.shape[0]).long(), (xs % tile.shape[1]).long()]
+    inv_dims = (float(np.float32(1.0) / np.float32(width)),
+                float(np.float32(1.0) / np.float32(height)))
+    return u, v_tex, noise_base, inv_dims
+
+
 def unswizzle(flat_block_ordered, width: int, height: int):
     """(H*W, ...) block-ordered tensor -> row-major flat order."""
     _, _, idx = block_order_on(width, height, flat_block_ordered.device)

@@ -4,7 +4,8 @@ Counterpart of `rayfinder_tpu.sky.model` (reference
 src/hw-skymodel/hw_skymodel.c). The 33-float state is built on the host in
 numpy exactly as the JAX package builds it (its module cannot be imported
 without loading jax, so the build is carried over here), and the radiance is
-evaluated per direction in torch.
+evaluated per direction in torch. sky_on_device is the one place a state's
+fields are copied to a device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 
 SOLAR_RADIUS_RADIANS = np.float32(0.004450589)  # 0.255 degrees (hw_skymodel.c:16)
 
@@ -148,12 +150,30 @@ def sky_from_jax(params, sky_radiances, solar_radiances, sun_direction) -> SkySt
         params, sky_radiances, solar_radiances, sun_direction)))
 
 
+def sky_on_device(sky: SkyState, device) -> SkyState:
+    """The state with its fields as float32 tensors on `device`: fields
+    already there are kept, the others copied, their bytes counted in
+    rf.h2d_bytes."""
+    device = torch.device(device)
+    fields, copied = [], 0
+    for f in sky:
+        if not (isinstance(f, torch.Tensor) and f.device == device):
+            t = f if isinstance(f, torch.Tensor) else torch.from_numpy(np.asarray(f, np.float32))
+            on = t.to(device)
+            copied += 0 if on is f else on.nbytes
+            f = on
+        fields.append(f)
+    if copied:
+        profiling.count(profiling.H2D_BYTES, copied)
+    return SkyState(*fields)
+
+
 def _perez(state: SkyState, cos_theta, cos_gamma, gamma):
     """Perez-style radiance per channel from (..., 1) angle terms; the
     evaluation order of sky_radiance_dist (hw_skymodel.c:182-223,
-    wgsl:247-275). Returns (..., 3)."""
-    p = torch.as_tensor(state.params, device=gamma.device)  # (3, 9)
-    r = torch.as_tensor(state.sky_radiances, device=gamma.device)
+    wgsl:247-275), state on gamma's device. Returns (..., 3)."""
+    p = state.params  # (3, 9)
+    r = state.sky_radiances
     cos_gamma2 = cos_gamma * cos_gamma
     exp_m = torch.exp(p[:, 4] * gamma)
     mie_m = (1.0 + cos_gamma2) / torch.pow(
@@ -172,6 +192,7 @@ def sky_radiance_dist(state: SkyState, theta, gamma):
     """Sky dome radiance WITHOUT the solar disk for direction angles
     theta/gamma (...,) f32 (the path tracer adds the sun through next-event
     estimation only). Returns (..., 3)."""
+    state = sky_on_device(state, gamma.device)
     theta = theta[..., None]
     gamma = gamma[..., None]
     return _perez(state, torch.abs(torch.cos(theta)), torch.cos(gamma), gamma)
@@ -181,8 +202,9 @@ def sky_radiance(state: SkyState, theta, gamma):
     """Full radiance including the constant solar disk (hw_skymodel.c:182-223):
     the CPU demo's semantics. theta/gamma: (...,) f32 tensors. Returns
     (..., 3)."""
+    state = sky_on_device(state, gamma.device)
     base = sky_radiance_dist(state, theta, gamma)
-    solar = torch.as_tensor(state.solar_radiances, device=gamma.device)
+    solar = state.solar_radiances
     in_disk = (gamma / float(SOLAR_RADIUS_RADIANS) <= 1.0)[..., None]
     return base + torch.where(in_disk, solar, 0.0)
 
@@ -191,7 +213,8 @@ def sky_radiance_dir(state: SkyState, direction):
     """Sky radiance for unit directions (B, 3), in the form the path kernel
     evaluates it: cos(theta) is the direction's y component and cos(gamma)
     the dot product with the sun, instead of cos(acos(.)) of each."""
-    sun = torch.as_tensor(state.sun_direction, device=direction.device)
+    state = sky_on_device(state, direction.device)
+    sun = state.sun_direction
     cos_g = (
         direction[:, 0] * sun[0] + direction[:, 1] * sun[1] + direction[:, 2] * sun[2]
     ).clamp(-1.0, 1.0)[:, None]

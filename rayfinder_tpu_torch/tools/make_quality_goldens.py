@@ -50,7 +50,7 @@ from ..render.intersect import T_MAX, brute_force_closest_hit
 from ..render.pathtracer import accumulate_samples_regen
 from ..render.rng import blue_noise_tile
 from ..render.scene import build_device_scene
-from ..render.tiling import block_order
+from ..render.tiling import block_order_on, pixel_centres
 from ..render.tonemap import tonemap
 from ..scene.procedural import courtyard_scene
 from ..sky.model import sky_state_from_ui
@@ -110,9 +110,8 @@ def texel_wrap_pixels(scene, camera, width: int, height: int) -> np.ndarray:
     tested against every triangle)."""
     dev = scene.device
     wrap = texel_wrap_triangles(scene)
-    ys, xs, _ = block_order(width, height)
-    u = (torch.from_numpy(xs).to(dev, torch.float32) + 0.5) / float(width)
-    v_tex = (torch.from_numpy(ys).to(dev, torch.float32) + 0.5) / float(height)
+    ys, xs, _ = block_order_on(width, height, dev)
+    u, v_tex = pixel_centres(ys, xs, width, height)
     noise = torch.full((u.shape[0], 2), 0.5, device=dev)
     inv_dims = (float(np.float32(1.0) / np.float32(width)),
                 float(np.float32(1.0) / np.float32(height)))

@@ -215,8 +215,7 @@ def test_two_calls_of_half_the_samples_equal_one(courtyard):
     def call(frame_base, num_frames, lrad):
         d = pt._Dispatch(scene=port, sky=sky, camera=cam, kernels=pt._ENGINES["plain"],
                          inv_dims=inv_dims, frame_base=frame_base, spp=SPP, nf=num_frames,
-                         num_bounces=BOUNCES, sun_dir=torch.as_tensor(sky.sun_direction),
-                         solar=torch.as_tensor(sky.solar_radiances))
+                         num_bounces=BOUNCES)
         st = pt._initial_state(d, lanes, n, lrad.device)
         st["lrad"] = lrad
         out = trace_regen_shaded_reference(*d.pixel_args(lanes), BOUNCES, 0, T_MAX,

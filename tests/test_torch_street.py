@@ -169,8 +169,7 @@ def _k4_state(scene, w=32, h=16, spp=4):
     lanes = dict(u=u, v_tex=v_tex, noise_base=tile[(ys % 128).long(), (xs % 128).long()])
     d = pt._Dispatch(scene=scene, sky=sky, camera=cam, kernels=pt._ENGINES["plain"],
                      inv_dims=(1.0 / w, 1.0 / h), frame_base=3, spp=spp, nf=spp,
-                     num_bounces=4, sun_dir=torch.as_tensor(sky.sun_direction),
-                     solar=torch.as_tensor(sky.solar_radiances))
+                     num_bounces=4)
     n = w * h
     st = pt._initial_state(d, lanes, n, "cpu")
     lrad, _ = d.split_step(st, lanes, torch.zeros(n, 3))

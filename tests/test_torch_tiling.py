@@ -1,12 +1,16 @@
 """The block-order pixel tables kept on the device (rayfinder_tpu_torch/
 render/tiling.py block_order_on), on the CPU at small sizes on the plain
-engine: one build per image size and device, no caller writing into them,
-and unswizzle the same permutation as a scatter through a numpy index."""
+engine: one build per image size and device, also over sharded steps, no
+caller writing into them, unswizzle the same permutation as a scatter
+through a numpy index, and the lanes made from them (pixel_lanes) those of
+the numpy derivation."""
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
+from rayfinder_tpu_torch.parallel import sharding
 from rayfinder_tpu_torch.render import pathtracer as pt
 from rayfinder_tpu_torch.render import tiling
 from rayfinder_tpu_torch.render.camera import create_camera
@@ -46,14 +50,17 @@ def _counted(rec, name):
 def test_pixel_tables_build_once_per_size(scene):
     """rf.pixel_tables counts 1 over three render(2) + image_u8() batches,
     with the tables' bytes in rf.h2d_bytes once, and 1 more after a size
-    change; "cpu" and torch.device("cpu") name one entry."""
+    change; "cpu" and torch.device("cpu") name one entry. Each batch copies
+    besides only the parked direction and the sky that K4's plain version
+    reads (the kernel takes it by value)."""
     tiling._block_order_on.cache_clear()
     r = Renderer(scene, _params(W, H), engine="plain")
     with profiling.recording() as rec:
         _batches(r, 3)
     assert _counted(rec, PIXEL_TABLES) == 1
     per_batch = _counted(rec, H2D_BYTES) - W * H * (4 + 4 + 8)
-    assert per_batch == 3 * (3 * 4 + 3 * 4 + 3 * 4)  # sun direction, solar, parked direction
+    sky_bytes = sum(np.asarray(f, np.float32).nbytes for f in SKY.state())
+    assert per_batch == 3 * (3 * 4 + sky_bytes)  # parked direction, K4's plain version's sky
     r.set_render_parameters(_params(48, 32))
     with profiling.recording() as rec:
         _batches(r, 1)
@@ -90,3 +97,56 @@ def test_unswizzle_is_the_numpy_index_scatter(size):
     want[tiling.block_order(w, h)[2].astype(np.int64)] = x
     got = tiling.unswizzle(torch.from_numpy(x), w, h).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("size, rows", [((32, 24), None), ((37, 23), 852)])
+def test_pixel_lanes_are_the_numpy_derivation(size, rows):
+    """pixel_lanes equals the derivation from numpy block_order: the order
+    padded with np.pad at pixel (0, 0), the centres in float32, the tile's
+    value per pixel and 1 / width, 1 / height in float32; at 32x24 and at
+    37x23 padded to 852 rows, a multiple of 4."""
+    w, h = size
+    tile = torch.from_numpy(blue_noise_tile())
+    ys_np, xs_np, _ = tiling.block_order(w, h)
+    pad = 0 if rows is None else rows - w * h
+    ys = torch.from_numpy(np.pad(ys_np, (0, pad)))
+    xs = torch.from_numpy(np.pad(xs_np, (0, pad)))
+    u, v_tex, noise_base, inv_dims = tiling.pixel_lanes(w, h, tile, rows=rows)
+    assert torch.equal(u, (xs.to(torch.float32) + 0.5) / float(w))
+    assert torch.equal(v_tex, (ys.to(torch.float32) + 0.5) / float(h))
+    assert torch.equal(noise_base, tile[(ys % 128).long(), (xs % 128).long()])
+    assert inv_dims == (float(np.float32(1.0) / np.float32(w)),
+                        float(np.float32(1.0) / np.float32(h)))
+
+
+def test_sharded_steps_build_pixel_tables_once(scene, tmp_path):
+    """Two regen steps on a 1x1 mesh (a one-rank gloo group) count
+    rf.pixel_tables once: the second copies no pixel data, only the parked
+    direction and the sky of K4's plain version. Each step adds to the
+    accumulator what one dispatch of the single-device loop gives from zero,
+    bit for bit."""
+    tiling._block_order_on.cache_clear()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = sharding.make_render_mesh(device="cpu")
+        p = _params(W, H)
+        sky, tile = SKY.state(), torch.from_numpy(blue_noise_tile())
+        kw = dict(width=W, height=H, num_bounces=2, spp=8, num_frames=2)
+        recs = []
+        accum = torch.zeros(W * H, 3)
+        for frame_base in (0, 2):
+            with profiling.recording() as rec:
+                accum = sharding.render_step_sharded_regen(
+                    scene, sky, p.camera, tile, frame_base, accum, mesh=mesh, **kw)
+            recs.append(rec)
+    finally:
+        dist.destroy_process_group()
+    assert [_counted(rec, PIXEL_TABLES) for rec in recs] == [1, 0]
+    sky_bytes = sum(np.asarray(f, np.float32).nbytes for f in sky)
+    assert _counted(recs[1], H2D_BYTES) == 3 * 4 + sky_bytes
+    want = torch.zeros(W * H, 3)
+    for frame_base in (0, 2):
+        want = want + pt.accumulate_samples_regen(scene, sky, p.camera, tile, frame_base,
+                                                  torch.zeros(W * H, 3), **kw)
+    assert torch.equal(accum, want)

@@ -12,13 +12,16 @@ import pytest
 import torch
 
 from portbench import cells, trace
+from rayfinder_tpu_torch.render import pathtracer as pt
 from rayfinder_tpu_torch.render import tiling
 from rayfinder_tpu_torch.render.camera import create_camera
 from rayfinder_tpu_torch.render.deferred import DeferredRenderer
 from rayfinder_tpu_torch.render.pathtracer import SamplingParams
 from rayfinder_tpu_torch.render.renderer import Renderer, RenderParameters, Sky
+from rayfinder_tpu_torch.render.rng import blue_noise_tile
 from rayfinder_tpu_torch.render.scene import build_device_scene
 from rayfinder_tpu_torch.scene.procedural import courtyard_scene
+from rayfinder_tpu_torch.sky.model import sky_on_device
 from rayfinder_tpu_torch.tools import viewer
 from rayfinder_tpu_torch.utils import profiling
 from rayfinder_tpu_torch.utils.profiling import D2H_BYTES, H2D_BYTES, PIXEL_TABLES, Count, Span
@@ -119,35 +122,77 @@ def test_recording_holds_the_spans_in_order(scene, kind):
     assert rec.take() and not rec.records()
 
 
-@pytest.mark.parametrize("case", ["pt_batch", "pt_second_batch", "deferred_new_sky",
-                                  "deferred_same_sky"])
-def test_h2d_bytes_are_the_listed_uploads(scene, case):
-    """rf.h2d_bytes over one 32x24 batch: the sky's sun direction and solar
-    radiances and the parked shadow direction of the initial state, and on
-    the first batch of a new image size the pixel tables (int32 ys and xs,
-    unswizzle's int64 index), which stay on the device after it; over a
-    deferred frame the sky's four fields when the sky is new, else nothing."""
+@pytest.mark.parametrize("case", ["pt_batch", "pt_second_batch", "pt_split_batch",
+                                  "deferred_new_sky", "deferred_same_sky"])
+def test_h2d_bytes_are_the_listed_uploads(scene, case, monkeypatch):
+    """rf.h2d_bytes over one 32x24 batch of the default route: the parked
+    shadow direction of the initial state, the sky's four fields that K4's
+    plain version reads (the kernel takes them by value in its parameter
+    block, so on the card the batch copies 12 bytes: tests/test_torch_cuda.py),
+    and on the first batch of a new image size the pixel tables (int32 ys
+    and xs, unswizzle's int64 index), which stay on the device after it.
+    Over a batch of the split route: the parked direction, the sky once for
+    the shade step and once per call of K3's plain version. Over a deferred
+    frame: the sky's four fields when the sky is new, else nothing."""
     sky = SKY.state()
-    if case.startswith("pt"):
+    sky_bytes = sum(np.asarray(f, np.float32).nbytes for f in sky)
+    if case == "pt_split_batch":
+        tiling.block_order_on(W, H, "cpu")
+        plain, calls = pt._ENGINES["plain"], []
+
+        def split(*args):
+            calls.append(args)
+            return plain.split(*args)
+
+        monkeypatch.setitem(pt._ENGINES, "plain", plain._replace(split=split))
+        tile = torch.from_numpy(blue_noise_tile())
+        step = lambda: pt.accumulate_samples_regen(  # noqa: E731
+            scene, sky, _camera(), tile, 0, torch.zeros(W * H, 3), width=W, height=H,
+            num_bounces=2, spp=8, num_frames=2, engine="plain", inkernel=False)
+        want = lambda: 3 * 4 + sky_bytes * (1 + len(calls))  # noqa: E731
+    elif case.startswith("pt"):
         tiling._block_order_on.cache_clear()
         r = _renderer(scene)
         if case == "pt_second_batch":
             _pt_batch(r)
         step = lambda: _pt_batch(r)  # noqa: E731
-        want = (sky.sun_direction.nbytes + sky.solar_radiances.nbytes + 3 * 4
-                + (W * H * (4 + 4 + 8) if case == "pt_batch" else 0))
+        first = W * H * (4 + 4 + 8) if case == "pt_batch" else 0
+        want = lambda: 3 * 4 + sky_bytes + first  # noqa: E731
     else:
         dr = DeferredRenderer(scene, W, H, engine="plain")
         if case == "deferred_same_sky":
             _deferred_frame(dr)
         step = lambda: _deferred_frame(dr)  # noqa: E731
-        want = 0 if case == "deferred_same_sky" else sum(
-            np.asarray(f, np.float32).nbytes for f in sky)
+        want = lambda: 0 if case == "deferred_same_sky" else sky_bytes  # noqa: E731
     with profiling.recording() as rec:
         step()
     counts = [c for c in rec.records() if isinstance(c, Count)]
     assert {c.name for c in counts} <= {H2D_BYTES, D2H_BYTES, PIXEL_TABLES}
-    assert sum(c.n for c in counts if c.name == H2D_BYTES) == want
+    assert sum(c.n for c in counts if c.name == H2D_BYTES) == want()
+    if case == "pt_split_batch":
+        assert calls
+
+
+@pytest.mark.parametrize("route", ["default", "split", "unfused"])
+def test_dispatch_copies_the_sky_only_where_torch_reads_it(scene, route, monkeypatch):
+    """The dispatch holds the host sky and hands K3 and K4 its values; it
+    asks sky_on_device for the sky once, and only where its own torch code
+    reads it: the split route's shade step and the unfused loop, never the
+    default route."""
+    asked = []
+
+    def spy(sky, device):
+        asked.append(device)
+        return sky_on_device(sky, device)
+
+    monkeypatch.setattr(pt, "sky_on_device", spy)
+    route_args = {"default": dict(engine="plain"), "split": dict(engine="plain", inkernel=False),
+                  "unfused": dict(engine="reference")}[route]
+    pt.accumulate_samples_regen(
+        scene, SKY.state(), _camera(), torch.from_numpy(blue_noise_tile()), 0,
+        torch.zeros(W * H, 3), width=W, height=H, num_bounces=2, spp=8, num_frames=2,
+        **route_args)
+    assert len(asked) == (0 if route == "default" else 1)
 
 
 @pytest.mark.parametrize("case", ["pt_batch", "deferred_frame"])
