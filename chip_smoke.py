@@ -95,12 +95,14 @@ kernels from csrc/, then:
    (b) the slice's path: DeferredRenderer on courtyard_scene(26) at
    1920x1080 (bench camera and sky), two warm-up and eight timed frames
    (ms per frame, synchronised, readback included; 2 K1 + 2 K2 launches
-   per frame, counted over the timed frames), the three passes unfused
-   between CUDA events, one frame under torch.profiler, the peak memory,
-   one frame's four queries launched at full width, each launch's result
-   held to the plain walks on its first and last 262,144 rays and timed,
-   and every ray passed through against the dropped lanes parked, in
-   turns; (c) a scripted ViewerSession on the slice's scene at 640x480 (pt
+   and the passes' six kernels per frame, counted over the timed frames),
+   the three passes unfused between CUDA events, one frame under
+   torch.profiler, the peak memory, one frame's four queries launched at
+   full width, each launch's result held to the plain walks on its first
+   and last 262,144 rays and timed, and the passes' six kernels: one warm
+   frame's planes, sample, accumulator and display bit for bit against
+   their plain versions, each kernel timed, with its bytes bound, in the
+   kernels line; (c) a scripted ViewerSession on the slice's scene at 640x480 (pt
    frames with the Mrays/s readout, a move resetting both renderers, a
    focus pick through K1, deferred and debug frames, every PNG written);
    (d) the BVH heat map of the slice's .pt at 1280x720, K1's node counts
@@ -1385,17 +1387,37 @@ def _hybrid_capped(scene, sky, camera, tile, dev, card: str) -> dict:
             "seconds_cap_lifted": sb, "rays": ra.tolist()}
 
 
-def _launch_counts() -> dict:
-    """The ray-query kernels' launch counts (K1, K2)."""
+def _launch_counters() -> dict:
+    """The functions whose .launches count the ray-query kernels (K1, K2)
+    and the deferred passes' kernels (gbuffer: 2 a pass, lighting: 3,
+    resolve: 1)."""
+    from rayfinder_tpu_torch.ops import deferred
     from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
 
-    return {"K1": intersect_closest_kernel.launches, "K2": intersect_any_kernel.launches}
+    return {"K1": intersect_closest_kernel, "K2": intersect_any_kernel,
+            "gbuffer": deferred.gbuffer_kernel, "lighting": deferred.lighting_kernel,
+            "resolve": deferred.resolve_kernel}
+
+
+def _launch_counts() -> dict:
+    """The launch counts of _launch_counters' kernels."""
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def _counts(k1: int, k2: int, gbuffer: int = 0, lighting: int = 0, resolve: int = 0) -> dict:
+    """_launch_counts' dict for these counts."""
+    return {"K1": k1, "K2": k2, "gbuffer": gbuffer, "lighting": lighting, "resolve": resolve}
+
+
+def _deferred_counts(frames: int) -> dict:
+    """_launch_counts' dict for `frames` deferred frames on the kernels: two
+    K1 and two K2, and the passes' six kernels, a frame."""
+    return _counts(2 * frames, 2 * frames, 2 * frames, 3 * frames, frames)
 
 
 def _zero_launches() -> None:
-    from rayfinder_tpu_torch.ops.walk import intersect_any_kernel, intersect_closest_kernel
-
-    intersect_closest_kernel.launches = intersect_any_kernel.launches = 0
+    for fn in _launch_counters().values():
+        fn.launches = 0
 
 
 def _scan_renders(scene, sky, tile, dev, label: str, golden, card: str, plain: bool) -> dict:
@@ -1449,10 +1471,10 @@ def _scan_renders(scene, sky, tile, dev, label: str, golden, card: str, plain: b
     _require(got["K1"] > 0 and got["K1"] == got["K2"],
              f"{label}: the unfused loop launched K1/K2 {got}")
     # Four windows x 8 samples x 4 bounces, one K1 and one K2 per bounce.
-    _require(out["launches"]["tiled kernel"] == {"K1": 128, "K2": 128},
+    _require(out["launches"]["tiled kernel"] == _counts(128, 128),
              f"{label}: the tiled scan form launched {out['launches']['tiled kernel']}")
     if plain:
-        _require(out["launches"]["tiled plain"] == {"K1": 0, "K2": 0},
+        _require(out["launches"]["tiled plain"] == _counts(0, 0),
                  f"{label}: the plain scan form launched K1/K2")
         same = np.array_equal(images["tiled kernel"], images["tiled plain"])
         print(f"  tiled scan form over K1/K2 (64x48 windows) == over their plain versions "
@@ -1590,8 +1612,8 @@ def _scan_decorrelated(scene, sky, camera, tile, dev, card: str) -> dict:
     _require(bool(torch.isfinite(rad["kernel"]).all()) and float(rad["kernel"].sum()) > 0.0,
              "the decorrelated radiance is not finite and non-zero")
     _require(same, f"decorrelated scan form: K1/K2 differ from plain, max |diff| {err:.3e}")
-    _require(launches["kernel"] == {"K1": bounces, "K2": bounces}
-             and launches["plain"] == {"K1": 0, "K2": 0},
+    _require(launches["kernel"] == _counts(bounces, bounces)
+             and launches["plain"] == _counts(0, 0),
              f"decorrelated scan form launched {launches}")
     return {"rays": o.shape[0], "seconds": seconds, "launches": launches, "max_abs_err": err}
 
@@ -1645,11 +1667,11 @@ def _scan_slice(scene, sky, camera, tile, dev, card: str) -> dict:
     out["profile"] = {name: _device_busy(f"slice via {name}, samples 16-31", lambda: run(
         nf, accums[name]), card) for name, run in forms}
     launches = out["launches"]
-    _require(launches["scan"] == {"K1": 64, "K2": 64},
+    _require(launches["scan"] == _counts(64, 64),
              f"the scan form launched {launches['scan']}, expected 64 K1 and 64 K2")
     _require(launches["unfused"]["K1"] > 0 and launches["unfused"]["K1"] == launches["unfused"]["K2"],
              f"the unfused loop launched {launches['unfused']}")
-    _require(launches["default"] == {"K1": 0, "K2": 0}, "the default route launched K1/K2")
+    _require(launches["default"] == _counts(0, 0), "the default route launched K1/K2")
     return out
 
 
@@ -1783,7 +1805,8 @@ def _deferred_small(scenes: dict, dev, card: str) -> dict:
     ("plain"): the TAA accumulators equal bit for bit, the displays and the
     debug triptychs equal, each within RMSE 5e-3 of the JAX-baked golden
     (tests/goldens/courtyard_deferred_128x96_f3.npz); two K1 and two K2
-    launches per frame on "kernel", none on "plain". Then the sun check: a
+    launches and the passes' six kernels per frame on "kernel", none on
+    "plain". Then the sun check: a
     9x9 camera above the untextured scene's root box staring at the sun
     reads above 1e4 at the centre pixel."""
     import numpy as np
@@ -1823,10 +1846,9 @@ def _deferred_small(scenes: dict, dev, card: str) -> dict:
               f"{secs['plain']:.3f} s; accumulator kernel == plain {same_accum}, display "
               f"{same_display}, debug {same_debug}; RMSE vs golden display {vs_golden:.3e}, "
               f"debug {debug_vs_golden:.3e} [{card}]", flush=True)
-        per_run = 2 * cfg.DEFERRED_FRAMES
-        _require(launches["kernel"] == {"K1": per_run, "K2": per_run},
+        _require(launches["kernel"] == _deferred_counts(cfg.DEFERRED_FRAMES),
                  f"deferred {kind}: the kernel frames launched {launches['kernel']}")
-        _require(launches["plain"] == {"K1": 0, "K2": 0}, f"deferred {kind}: plain launched K1/K2")
+        _require(launches["plain"] == _counts(0, 0), f"deferred {kind}: plain launched kernels")
         _require(same_accum and same_display and same_debug,
                  f"deferred {kind}: the frames on K1/K2 differ from their plain versions")
         _require(vs_golden < 5e-3 and debug_vs_golden < 5e-3,
@@ -1849,108 +1871,142 @@ def _deferred_small(scenes: dict, dev, card: str) -> dict:
 
 
 def _record_queries(fn) -> tuple:
-    """fn() with every K1/K2 query of the "kernel" engine recorded:
-    (fn's result, [(kind, o, d, t_max), ...] in call order)."""
+    """fn() with every K1/K2 query of the "kernel" engine recorded, those of
+    the deferred passes' kernels (ops/deferred.py) too: (fn's result,
+    [(kind, o, d, t_max), ...] in call order)."""
+    from rayfinder_tpu_torch.ops import deferred as od
     from rayfinder_tpu_torch.render import pathtracer as pt
 
     calls = []
     closest, any_hit = pt._WALKS["kernel"]
+    closest_into, any_into = od.closest_into, od.any_into
 
     def record(kind, query):
-        def wrapped(scene, o, d, t_max):
+        def wrapped(scene, o, d, t_max, *out):
             calls.append((kind, o, d, t_max))
-            return query(scene, o, d, t_max)
+            return query(scene, o, d, t_max, *out)
         return wrapped
 
     pt._WALKS["kernel"] = (record("closest", closest), record("any", any_hit))
+    od.closest_into, od.any_into = record("closest", closest_into), record("any", any_into)
     try:
         out = fn()
     finally:
         pt._WALKS["kernel"] = (closest, any_hit)
+        od.closest_into, od.any_into = closest_into, any_into
     return out, calls
 
 
-def _parking_ab(scene, cam, sky, card: str, rounds: int = 3) -> dict:
-    """The deferred frame as it ships, every ray passed to K1/K2 as the JAX
-    package passes them, against the same frame with the lanes whose result
-    the pass drops parked far outside the scene (a miss pixel's three
-    lighting queries, a missed bounce's sun sample), at 1920x1080 in turns
-    (parked, through, through, parked) x rounds after a warm-up frame each:
-    the wall of each render() and the CUDA-event span of its frame_pass,
-    medians. The two renderers' accumulators must stay equal bit for bit: a
-    lane's result that the pass drops may not reach the image."""
-    import statistics
+DEFERRED_KERNELS = ("rays", "gbuffer", "light_rays", "bounce", "sample", "resolve")
+DEFERRED_KERNEL_FRAMES = 5
 
+
+def _deferred_bytes(scene, n: int, tri, b_tri) -> dict:
+    """Each deferred kernel's bytes on a frame of n pixels whose primaries
+    hit tri and whose bounce rays hit b_tri (-1: a miss), as csrc/deferred.cu
+    reads and writes them: the planes it reads for the pixels that use them
+    and the planes it writes, the distinct 100-byte attribute rows of the
+    triangles met (a missed bounce reads row 0), and the texels, the blue-
+    noise tile once each."""
     import torch
 
-    from rayfinder_tpu_torch.render import deferred
-    from rayfinder_tpu_torch.render.deferred import DeferredRenderer
-    from rayfinder_tpu_torch.render.shade import PARK
+    hit = tri >= 0
+    hits, b_hits = int(hit.sum()), int((hit & (b_tri >= 0)).sum())
+    rows = {"primaries": int(torch.unique(tri[hit]).numel()),
+            "bounces": int(torch.unique(b_tri.clamp(min=0)).numel())}
+    row_bytes = scene.tri_attrs[0].numel() * scene.tri_attrs.element_size()
+    texels = _nbytes(scene.texels, scene.tex_desc)
+    return {
+        "rays": 24 * n,
+        "gbuffer": 4 * n + 16 * hits + 41 * n + row_bytes * rows["primaries"] + texels,
+        "light_rays": 60 * n + 128 * 128 * 2 * 4,
+        "bounce": 41 * n + 12 * b_hits + 12 * hits + row_bytes * rows["bounces"] + texels,
+        "sample": 13 * n + 12 * (n - hits) + 53 * hits + b_hits,
+        "resolve": 39 * n,
+    }, {"hits": hits, "bounce_hits": b_hits, "rows": rows, "row_bytes": row_bytes,
+        "texel_bytes": texels}
 
-    closest, any_hit, frame_pass = deferred._closest, deferred._any, deferred.frame_pass
-    # A frame's queries in order: primaries (all live), the G-buffer's sun
-    # sample (live: hit), the bounce (hit), the bounce's sun sample (hit &
-    # the bounce's hit). masks holds the live sets the closest queries found.
-    masks = []
 
-    def park(o, d, live):
-        if live is None:
-            return o, d
-        return torch.where(live[:, None], o, PARK), torch.where(live[:, None], d, 1.0)
+def _deferred_kernel_ms(render, frames: int) -> dict:
+    """Each deferred kernel's mean device time over `frames` calls of
+    render(): every launch through ops/deferred.py between CUDA events, a
+    busy-wait queued ahead of each so that no host gap falls inside."""
+    import torch
 
-    def parked_closest(scene, o, d, engine):
-        live = masks[0] if masks else None
-        hit, t, tri = closest(scene, *park(o, d, live), engine)
-        masks.append(hit if live is None else live & hit)
-        return hit, t, tri
+    from rayfinder_tpu_torch.ops import deferred
 
-    def parked_any(scene, o, d, engine):
-        return any_hit(scene, *park(o, d, masks[-1]), engine)
+    real, logs = deferred._launch, {}
 
-    def spanned(*args, **kwargs):
-        spanned.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        spanned.events[0].record()
-        out = frame_pass(*args, **kwargs)
-        spanned.events[1].record()
-        return out
+    def timed(fn, *args):
+        _timed_call(real, logs.setdefault(fn, []), fn, *args)
+
+    deferred._launch = timed
+    try:
+        for _ in range(frames):
+            render()
+    finally:
+        deferred._launch = real
+    torch.cuda.synchronize()
+    return {fn.removeprefix("rf_deferred_"): sum(a.elapsed_time(b) for a, b in pairs) / frames
+            for fn, pairs in logs.items()}
+
+
+def _deferred_kernel_entries(scene, r, cam, sky, tris, launches: dict, card: str) -> list:
+    """Phase 10 (b), the passes' six kernels on the 1080p frame: one warm
+    frame's passes against their plain versions on the same inputs (the
+    G-buffer planes, the sample, the accumulator and the display, bit for
+    bit), each kernel's device time (_deferred_kernel_ms) and its bytes
+    bound on the recorded frame's planes (_deferred_bytes). launches: the
+    timed frames' counts (_launch_counts). Returns their entries of the
+    kernels table."""
+    import torch
+
+    from rayfinder_tpu_torch.ops.deferred import (
+        gbuffer_kernel, gbuffer_reference, lighting_kernel, lighting_reference,
+        resolve_kernel, resolve_reference,
+    )
 
     w, h = DEFERRED_HD["width"], DEFERRED_HD["height"]
-    forms = {"through": (closest, any_hit), "parked": (parked_closest, parked_any)}
-    renderers = {k: DeferredRenderer(scene, w, h) for k in forms}
-    wall = {k: [] for k in forms}
-    span = {k: [] for k in forms}
+    fc, n = r.frame_count, w * h
+    planes = ("hit", "position", "normal", "albedo", "depth", "view_dir")
+    gk = gbuffer_kernel(scene, cam, fc, width=w, height=h)
+    gp = gbuffer_reference(scene, cam, fc, width=w, height=h)
+    _equal(f"deferred {w}x{h} frame {fc}: gbuffer_kernel", planes, [gk[k] for k in planes],
+           [gp[k] for k in planes], card, "gbuffer_reference")
+    sk = lighting_kernel(scene, sky, gk, fc, width=w, height=h, tile=r._tile)
+    sp = lighting_reference(scene, sky, gk, fc, width=w, height=h, tile=r._tile)
+    _equal(f"deferred {w}x{h} frame {fc}: lighting_kernel", ("sample",), (sk,), (sp,), card,
+           "lighting_reference")
+    _equal(f"deferred {w}x{h} frame {fc}: resolve_kernel", ("accum", "display"),
+           resolve_kernel(sk, r.accum, fc, 0.25), resolve_reference(sk, r.accum, fc, 0.25),
+           card, "resolve_reference")
+    del gk, gp, sk, sp
 
-    def frame(form: str, timed: bool) -> None:
-        masks.clear()
-        deferred._closest, deferred._any = forms[form]
-        deferred.frame_pass = spanned
-        try:
-            t0 = time.perf_counter()
-            renderers[form].render(cam, sky, 0.25)
-            t1 = time.perf_counter()
-        finally:
-            deferred._closest, deferred._any, deferred.frame_pass = closest, any_hit, frame_pass
-        if timed:
-            wall[form].append(1e3 * (t1 - t0))
-            span[form].append(spanned.events[0].elapsed_time(spanned.events[1]))
-
-    for form in forms:
-        frame(form, False)
-    for _ in range(rounds):
-        for form in ("parked", "through", "through", "parked"):
-            frame(form, True)
-    same = bool(torch.equal(renderers["parked"].accum, renderers["through"].accum))
-    out = {k: {"wall_ms": wall[k], "span_ms": span[k],
-               "median_wall_ms": statistics.median(wall[k]),
-               "median_span_ms": statistics.median(span[k])} for k in forms}
-    print("deferred 1080p, every ray passed through (as shipped) against the dropped lanes "
-          "parked, in turns: " + "; ".join(
-              f"{k} median {v['median_wall_ms']:.3f} ms per render(), frame_pass span "
-              f"{v['median_span_ms']:.3f} ms (walls {[round(x, 3) for x in v['wall_ms']]})"
-              for k, v in out.items()) + f"; accumulators equal {same} [{card}]", flush=True)
-    _require(same, "parking the dropped lanes changed the deferred image")
-    out["equal"] = same
-    return out
+    ms = _deferred_kernel_ms(lambda: r.render(cam, sky, 0.25), DEFERRED_KERNEL_FRAMES)
+    _require(sorted(ms) == sorted(DEFERRED_KERNELS), f"the deferred frame launched {sorted(ms)}")
+    nbytes, shape = _deferred_bytes(scene, n, tris[0], tris[1])
+    passes = {"rays": "gbuffer", "gbuffer": "gbuffer", "light_rays": "lighting",
+              "bounce": "lighting", "sample": "lighting", "resolve": "resolve"}
+    per_frame = _deferred_counts(1)
+    path = f"phase 10 deferred {w}x{h}, {DEFERRED_HD['timed_frames']} timed frames"
+    entries = []
+    for name in DEFERRED_KERNELS:
+        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        entries.append(_kernel_entry(
+            f"deferred_{name}", "deferred.cu",
+            f"rayfinder_tpu_torch/render/deferred.py {passes[name]}_pass (torch; no TPU kernel)",
+            launches[passes[name]] // per_frame[passes[name]],
+            0.0, ms[name], None,
+            dict(bound_ms=bytes_ms, bound_by="bytes", ops=None, bytes=nbytes[name]), path))
+    total, bound = sum(ms.values()), sum(nbytes.values()) / HBM_BYTES_PER_S * 1e3
+    print(f"deferred {w}x{h} passes' kernels (CUDA events, mean of {DEFERRED_KERNEL_FRAMES} "
+          f"frames; {shape['hits']} G-buffer hits, {shape['bounce_hits']} bounce hits, "
+          f"{shape['rows']} distinct attribute rows): " + ", ".join(
+              f"{e['name']} {e['ms']:.4f} ms (bytes bound {e['bound_ms']:.4f})" for e in entries)
+          + f"; all six {total:.4f} ms against {bound:.4f} ms ({100 * bound / total:.0f}%) "
+          f"[{card}]", flush=True)
+    _require(all(e["ms"] > 0.0 for e in entries), "a deferred kernel took no device time")
+    return entries
 
 
 def _deferred_full_hd(scene, dev, card: str) -> dict:
@@ -1966,7 +2022,12 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
     rays (t, tri, nodes, occlusion exact; the rays of each window whose
     result the pass drops counted), each timed at full width; K1's and
     K2's bounds on the primaries' and the G-buffer shadow rays' first
-    windows from their counted work. Then the parking A/B (_parking_ab)."""
+    windows from their counted work. The passes' six kernels (ops/deferred.py):
+    their launches counted over the timed frames (2 + 3 + 1 a frame), one
+    warm frame's G-buffer planes, sample, accumulator and display held bit
+    for bit to the plain versions on the same inputs, each kernel timed
+    between CUDA events over DEFERRED_KERNEL_FRAMES frames, and its bytes
+    bound from the recorded frame's planes (_deferred_kernel_entries)."""
     import numpy as np
     import torch
 
@@ -1976,8 +2037,9 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
         intersect_closest_kernel, intersect_closest_reference,
     )
     from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.ops.deferred import resolve_kernel
     from rayfinder_tpu_torch.render.deferred import (
-        DeferredRenderer, float_table, gbuffer_pass, lighting_pass, resolve_pass, to_float,
+        DeferredRenderer, float_table, gbuffer_pass, lighting_pass, to_float,
     )
     from rayfinder_tpu_torch.render.traverse import count_work, intersect_any
     from rayfinder_tpu_torch.sky.model import sky_state_from_ui
@@ -2005,8 +2067,8 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
           f"included; frames {[round(1e3 * s, 3) for s in frame_s]} ms), rolling 'frame' "
           f"{r.perf_stats()['frame']:.3f} ms, K1/K2 launches over {n} frames {launches}, peak "
           f"memory {peak / 2**20:.1f} MiB [{card}]", flush=True)
-    _require(launches == {"K1": 2 * n, "K2": 2 * n},
-             f"the 1080p deferred frames launched {launches}, expected {2 * n} each")
+    _require(launches == _deferred_counts(n),
+             f"the 1080p deferred frames launched {launches}, expected {_deferred_counts(n)}")
     _require(img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.max() > 0.0
              and bool(torch.isfinite(r.accum).all()), "the 1080p deferred frame is not right")
 
@@ -2019,10 +2081,9 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
         ev[0].record()
         gbuf = gbuffer_pass(scene, cam, fc, width=w, height=h)
         ev[1].record()
-        sample = lighting_pass(scene, r._device_sky(sky), gbuf, fc, width=w, height=h,
-                               tile=r._tile)
+        sample = lighting_pass(scene, sky, gbuf, fc, width=w, height=h, tile=r._tile)
         ev[2].record()
-        r.accum, _ = resolve_pass(sample, r.accum, fc, 0.25)
+        r.accum, _ = resolve_kernel(sample, r.accum, fc, 0.25)
         ev[3].record()
         torch.cuda.synchronize()
         r.frame_count += 1
@@ -2059,6 +2120,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
     windows = {"head": slice(0, QUERY_WINDOW), "tail": slice(rays - QUERY_WINDOW, rays)}
     query_ms, checks, dropped, nonfinite = {}, {}, {}, {}
     hits = []  # the G-buffer's hit, then hit & the bounce's hit
+    tris = []  # the primaries' and the bounce rays' triangles
     for k, (name, (kind, o, d, t_max)) in enumerate(zip(names, calls)):
         _require(o.shape[0] == rays, f"the 1080p frame's {name} hold {o.shape[0]} rays")
         live = None if k == 0 else hits[0] if k < 3 else hits[1]
@@ -2067,6 +2129,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
             plain = intersect_closest_reference
             query_ms[name] = _time_ms(lambda: intersect_closest_kernel(scene, o, d, t_max), 5)
             hits.append(full[0] if live is None else live & full[0])
+            tris.append(full[2])
         else:
             full = (intersect_any_kernel(scene, o, d, t_max),)
             plain = lambda *a: (intersect_any_reference(*a),)  # noqa: E731
@@ -2086,7 +2149,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
               f"{k} {v:.4f} ms" for k, v in query_ms.items())
           + f"; K1 + K2 per frame {sum(query_ms.values()):.4f} ms [{card}]", flush=True)
 
-    parking = _parking_ab(scene, cam, sky, card)
+    kernel_entries = _deferred_kernel_entries(scene, r, cam, sky, tris, launches, card)
 
     # Bounds and times on the windows of the primaries (K1) and the
     # G-buffer's shadow rays (K2).
@@ -2113,7 +2176,7 @@ def _deferred_full_hd(scene, dev, card: str) -> dict:
             "peak_bytes": peak, "pass_ms": pass_ms, "profile": profile, "query_ms": query_ms,
             "readback_ms": readback_ms, "convert_ms": convert_ms,
             "window_checks": checks, "window_dropped": dropped, "window_nonfinite": nonfinite,
-            "parking_ab": parking,
+            "kernel_entries": kernel_entries,
             "k1_window_ms": k1_ms, "k2_window_ms": k2_ms,
             "k1_window_bound_ms": k1_bound["bound_ms"], "k2_window_bound_ms": k2_bound["bound_ms"],
             "card": card}
@@ -2124,7 +2187,8 @@ def _viewer_check(scene, dev, card: str, outdir: pathlib.Path) -> dict:
     (default engine, the bench camera): pt frames with the Mrays/s readout
     from the exact counts, a deferred frame, a move that resets both
     renderers, a focus pick through one K1 launch, four deferred frames (8 K1
-    and 8 K2 launches) and a debug frame; every PNG written."""
+    and 8 K2 launches, and the passes' kernels) and a debug frame; every PNG
+    written."""
     import numpy as np
 
     from rayfinder_tpu_torch.render.renderer import Sky
@@ -2156,7 +2220,7 @@ def _viewer_check(scene, dev, card: str, outdir: pathlib.Path) -> dict:
              "the pick did not set the focus through one K1 launch")
     _zero_launches()
     handle("frames 4")
-    _require(s._deferred.frame_count == 4 and _launch_counts() == {"K1": 8, "K2": 8},
+    _require(s._deferred.frame_count == 4 and _launch_counts() == _deferred_counts(4),
              f"four deferred frames: frame count {s._deferred.frame_count}, {_launch_counts()}")
     handle("renderer debug")
     s.out_path = outdir / "viewer_debug.png"
@@ -3187,7 +3251,8 @@ def main(argv=None) -> int:
         # are not counted here.
         phase12 = _phase12(scene26, scene8, camera, dev, card)
 
-    kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry]
+    kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry,
+               *deferred_numbers.get("full_hd", {}).get("kernel_entries", [])]
     print(f"total {time.perf_counter() - t_start:.1f} s from the start of the build",
           flush=True)
     print(card, flush=True)

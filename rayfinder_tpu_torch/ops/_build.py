@@ -33,7 +33,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("walk.cu", "regen.cu", "regen_shaded.cu", "regen_segs.cu", "slab_entry.cu",
-           "skyround.cu")
+           "skyround.cu", "deferred.cu")
 HEADERS = ("traverse.cuh", "traverse2.cuh", "path.cuh", "shade.cuh")
 # Flags of each source's compile; the objects are then linked with -shared.
 NVCC_FLAGS = (
@@ -71,6 +71,21 @@ _ARGTYPES = {
     "rf_slab_entry_reduce": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     # ..., params, n, rounds, mode, u, v_tex, noise_base, acc, stream
     "rf_sky_round": _PACKED_ARGTYPES + [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # The deferred passes (csrc/deferred.cu): params, n, then the planes each
+    # reads and writes, stream; shade tables first where a pass shades.
+    # origin, direction
+    "rf_deferred_rays": [_P, _I, _P, _P, _P],
+    # direction, t, tri -> hit, position, normal, albedo, depth
+    "rf_deferred_gbuffer": _SHADE_ARGTYPES + [_P, _I] + [_P] * 8 + [_P],
+    # tile, position, normal -> origin, light, bounce
+    "rf_deferred_light_rays": [_P, _I] + [_P] * 6 + [_P],
+    # hit, origin, wi, light, tri -> b_origin, b_light
+    "rf_deferred_bounce": _SHADE_ARGTYPES + [_P, _I] + [_P] * 7 + [_P],
+    # hit, view_dir, normal, albedo, light, occluded, tri, b_occluded,
+    # b_light -> sample
+    "rf_deferred_sample": [_P, _I] + [_P] * 10 + [_P],
+    # sample, accum -> blended, display
+    "rf_deferred_resolve": [_P, _I] + [_P] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,9 @@ nodes_visited of the plane walk (render/traverse.py intersect_closest,
 intersect_any).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises.
+launches its kernel or raises. `closest_into` and `any_into` launch K1 and
+K2 into outputs that the caller allocates (the deferred passes' kernels,
+ops/deferred.py); they count in the same launch counts.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ __all__ = [
     "intersect_any_kernel",
     "intersect_closest_reference",
     "intersect_any_reference",
+    "closest_into",
+    "any_into",
 ]
 
 
@@ -44,11 +48,10 @@ def intersect_any_reference(scene: DeviceScene, origin, direction, t_max):
     return intersect_packed(scene, origin, direction, t_max, any_hit=True)[0]
 
 
-def _ray_args(origin, direction, t_max):
+def _ray_args(origin, t_max):
+    """The rays' device and count, and t_max as a (B,) float32 tensor there."""
     dev = origin.device
     n = origin.shape[0]
-    _build.check(origin, "origin", torch.float32, (n, 3), dev)
-    _build.check(direction, "direction", torch.float32, (n, 3), dev)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
     t_max = t_max.expand(n).contiguous()
     return dev, n, t_max
@@ -61,10 +64,37 @@ def intersect_closest_kernel(scene: DeviceScene, origin, direction, t_max):
     triangle index (-1 on a miss, where t is t_max)."""
     if origin.device.type == "cpu":
         return intersect_closest_reference(scene, origin, direction, t_max)
-    dev, n, t_max = _ray_args(origin, direction, t_max)
+    dev, n, t_max = _ray_args(origin, t_max)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     visits = torch.empty(n, dtype=torch.int32, device=dev)
+    closest_into(scene, origin, direction, t_max, t, tri, visits)
+    return tri >= 0, t, tri, visits
+
+
+def intersect_any_kernel(scene: DeviceScene, origin, direction, t_max):
+    """Whether anything lies on each ray (B, 3) below t_max (float or
+    (B,)): occluded (B,) bool, for shadow rays."""
+    if origin.device.type == "cpu":
+        return intersect_any_reference(scene, origin, direction, t_max)
+    dev, n, t_max = _ray_args(origin, t_max)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    any_into(scene, origin, direction, t_max, occ)
+    return occ
+
+
+def closest_into(scene: DeviceScene, origin, direction, t_max, t, tri, visits) -> None:
+    """Launch K1 on CUDA rays (B, 3) below the bounds t_max (B,), writing
+    intersect_closest_kernel's t, tri and nodes_visited into the (B,)
+    tensors given; counted in intersect_closest_kernel.launches."""
+    dev = origin.device
+    n = origin.shape[0]
+    for tensor, name, dtype, shape in (
+        (origin, "origin", torch.float32, (n, 3)), (direction, "direction", torch.float32, (n, 3)),
+        (t_max, "t_max", torch.float32, (n,)), (t, "t", torch.float32, (n,)),
+        (tri, "tri", torch.int32, (n,)), (visits, "visits", torch.int32, (n,)),
+    ):
+        _build.check(tensor, name, dtype, shape, dev)
     if n:
         lib = _build.library()
         with torch.cuda.device(dev):
@@ -75,16 +105,19 @@ def intersect_closest_kernel(scene: DeviceScene, origin, direction, t_max):
             )
         _build.raise_on_error(err, "rf_intersect_closest")
         intersect_closest_kernel.launches += 1
-    return tri >= 0, t, tri, visits
 
 
-def intersect_any_kernel(scene: DeviceScene, origin, direction, t_max):
-    """Whether anything lies on each ray (B, 3) below t_max (float or
-    (B,)): occluded (B,) bool, for shadow rays."""
-    if origin.device.type == "cpu":
-        return intersect_any_reference(scene, origin, direction, t_max)
-    dev, n, t_max = _ray_args(origin, direction, t_max)
-    occ = torch.empty(n, dtype=torch.bool, device=dev)
+def any_into(scene: DeviceScene, origin, direction, t_max, occ) -> None:
+    """Launch K2 on CUDA rays (B, 3) below the bounds t_max (B,), writing
+    the occlusion into the (B,) bool tensor `occ`; counted in
+    intersect_any_kernel.launches."""
+    dev = origin.device
+    n = origin.shape[0]
+    for tensor, name, dtype, shape in (
+        (origin, "origin", torch.float32, (n, 3)), (direction, "direction", torch.float32, (n, 3)),
+        (t_max, "t_max", torch.float32, (n,)), (occ, "occ", torch.bool, (n,)),
+    ):
+        _build.check(tensor, name, dtype, shape, dev)
     if n:
         lib = _build.library()
         with torch.cuda.device(dev):
@@ -95,7 +128,6 @@ def intersect_any_kernel(scene: DeviceScene, origin, direction, t_max):
             )
         _build.raise_on_error(err, "rf_intersect_any")
         intersect_any_kernel.launches += 1
-    return occ
 
 
 # Kernel launch counts (a run resets and reads them to show which kernels

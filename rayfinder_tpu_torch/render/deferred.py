@@ -23,7 +23,10 @@ reference:
 A frame makes four ray queries of width x height rays through get_engine:
 on the default engine "kernel" the closest-hit kernel K1 (primaries and
 bounce rays) and the any-hit kernel K2 (the two sun samples), ops/walk.py.
-The shade around them is torch, on the scene's device.
+On a CUDA scene with the engine "kernel" the passes' arithmetic around them
+runs in CUDA kernels too (ops/deferred.py, csrc/deferred.cu), which give
+these torch passes' results bit for bit; every other engine, and every CPU
+scene, runs the passes below in torch on the scene's device.
 """
 
 from __future__ import annotations
@@ -57,6 +60,19 @@ PASSES = ("gbuffer", "lighting", "resolve")
 # R2 jitter constants (r_sequence.hpp:11-22), rounded from f64 as JAX does.
 _A1 = np.float32(1.0 / 1.32471795)
 _A2 = np.float32(1.0 / (1.32471795**2))
+
+
+def _on_kernels(scene: DeviceScene, engine: str) -> bool:
+    """Whether the passes run as CUDA kernels: a CUDA scene on "kernel"."""
+    return engine == "kernel" and scene.device.type == "cuda"
+
+
+def _kernels():
+    """ops/deferred.py, the passes' kernels (imported at first use: it
+    imports this module)."""
+    from ..ops import deferred
+
+    return deferred
 
 
 def _closest(scene, o, d, engine):
@@ -106,6 +122,9 @@ def gbuffer_pass(
     """Primary-ray G-buffer on the scene's device. Returns a dict of flat
     (H*W, ...) planes: hit, position, normal, albedo, depth (0 = miss, like
     reverse-Z) and view_dir."""
+    if _on_kernels(scene, engine):
+        return _kernels().gbuffer_kernel(scene, camera, frame_count, width=width,
+                                         height=height)
     ys, xs = _pixels(width, height, scene.device)
     jx, jy = _jitter(int(frame_count))
     u = (xs.to(torch.float32) + 0.5 + jx) * _recip(width)
@@ -153,6 +172,9 @@ def lighting_pass(
     """2-bounce lighting from the G-buffer (lighting_pass.wgsl:96-236).
     tile: the (128, 128, 2) blue-noise tile on the scene's device (loaded
     when None). Returns (H*W, 3) radiance samples."""
+    if _on_kernels(scene, engine):
+        return _kernels().lighting_kernel(scene, sky, gbuffer, frame_count, width=width,
+                                          height=height, tile=tile)
     dev = scene.device
     ys, xs = _pixels(width, height, dev)
     noise = animated_blue_noise(ys, xs, int(frame_count), _NOISE_PERIOD, tile=tile)
@@ -200,7 +222,10 @@ def lighting_pass(
 def resolve_pass(sample, accum, frame_count: int, exposure: float):
     """Temporal exponential blend + tonemap (resolve_pass.wgsl:34-63).
     Returns (new_accum, display u8 (H*W, 3)): the reference's swapchain
-    target is BGRA8Unorm, so the frame leaves the device as 8 bits."""
+    target is BGRA8Unorm, so the frame leaves the device as 8 bits. This
+    pass has no scene or engine to choose by, so frame_pass takes its
+    kernel (ops/deferred.py resolve_kernel) in its place on a CUDA scene
+    with the engine "kernel"."""
     blended = sample if int(frame_count) == 0 else 0.1 * sample + 0.9 * accum
     img = tonemap(blended, exposure)
     img8 = torch.clamp(torch.round(img * 255.0), 0.0, 255.0).to(torch.uint8)
@@ -229,6 +254,8 @@ def frame_pass(
         sample = lighting_pass(scene, sky, gbuf, frame_count, width=width, height=height,
                                engine=engine, tile=tile)
     with profiling.span("rf.deferred.resolve", device=True):
+        if _on_kernels(scene, engine):
+            return _kernels().resolve_kernel(sample, accum, frame_count, exposure)
         return resolve_pass(sample, accum, frame_count, exposure)
 
 
@@ -291,12 +318,15 @@ class DeferredRenderer:
         host memory (pageable on the CPU), which the caller owns. The time
         recorded spans the frame, the copy and the device sync."""
         dev = self.scene.device
+        on_kernels = _on_kernels(self.scene, self.engine)
         t0 = time.perf_counter()
         with profiling.span("rf.deferred.frame", frame=self.frame_count):
+            profiling.count(profiling.KERNEL_FRAMES, int(on_kernels))
+            # The kernels take the sky by value, from its host state.
             self.accum, img8 = frame_pass(
-                self.scene, self._device_sky(sky), camera, self.accum, self.frame_count,
-                float(exposure), width=self.width, height=self.height, engine=self.engine,
-                tile=self._tile,
+                self.scene, sky if on_kernels else self._device_sky(sky), camera, self.accum,
+                self.frame_count, float(exposure), width=self.width, height=self.height,
+                engine=self.engine, tile=self._tile,
             )
             with profiling.span("rf.deferred.to_float"):
                 image = to_float(img8, self._to_float).reshape(self.height, self.width, 3)

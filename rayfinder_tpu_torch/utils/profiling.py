@@ -32,6 +32,9 @@ PIXEL_TABLES = "rf.pixel_tables"
 D2H_BYTES = "rf.d2h_bytes"
 # The interior BVH records that K4's walks read (Renderer(count_rays=True)).
 WALK_RECORDS = "rf.walk_records"
+# Deferred frames whose passes ran as CUDA kernels (1 a frame that did, 0 one
+# that did not; render/deferred.py DeferredRenderer.render).
+KERNEL_FRAMES = "rf.deferred.kernel_frames"
 
 
 class PassTimer:

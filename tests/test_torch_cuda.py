@@ -1218,3 +1218,136 @@ def test_deferred_frame_is_converted_on_the_card_into_pinned_memory(dev, scene8)
     copies = {e.name for e in prof.events() if e.name.startswith("Memcpy DtoH")}
     profiling.PROFILED.take()
     assert copies == {"Memcpy DtoH (Device -> Pinned)"}, copies
+
+
+def _planes_equal(got: dict, want: dict, label: str) -> None:
+    """Each plane bit for bit (floats compared as their bits), naming the
+    first plane that differs and how many of its rows do."""
+    for k, a in want.items():
+        b = got[k]
+        assert b.dtype == a.dtype and b.shape == a.shape, (label, k)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad = (a != b).reshape(a.shape[0], -1).any(dim=1)
+        assert not bool(bad.any()), f"{label} {k}: {int(bad.sum())} rows differ, first " \
+                                    f"{torch.nonzero(bad)[:4, 0].tolist()}"
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_deferred_pass_kernels_equal_their_plain_versions(dev, textured):
+    """At 1920x1080 on courtyard_scene(8): the G-buffer kernels' planes, the
+    lighting kernels' samples (from the same G-buffer) and the resolve
+    kernel's history and display (frame 0's copy and a blend, on samples
+    holding NaN, infinities and negatives too) equal the torch passes' bit
+    for bit, with the launches each wrapper counts."""
+    from rayfinder_tpu_torch.ops import deferred as od
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+
+    flat, textures = courtyard_scene(8, textured=textured)
+    scene = build_device_scene(flat, textures=textures, device=dev)
+    w, h = 1920, 1080
+    camera, sky = _bench_view(w, h)
+    sky = sky.state()
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+    for frame in (0, 7):
+        launches = (od.gbuffer_kernel.launches, od.lighting_kernel.launches)
+        gbuf = od.gbuffer_kernel(scene, camera, frame, width=w, height=h)
+        _planes_equal(gbuf, od.gbuffer_reference(scene, camera, frame, width=w, height=h),
+                      f"gbuffer, frame {frame}")
+        assert bool(gbuf["hit"].any()) and not bool(gbuf["hit"].all())
+        sample = od.lighting_kernel(scene, sky, gbuf, frame, width=w, height=h, tile=tile)
+        want = od.lighting_reference(scene, sky, gbuf, frame, width=w, height=h, tile=tile)
+        _planes_equal({"sample": sample}, {"sample": want}, f"lighting, frame {frame}")
+        assert (od.gbuffer_kernel.launches - launches[0],
+                od.lighting_kernel.launches - launches[1]) == (2, 3)
+    odd = torch.tensor([[float("nan"), float("inf"), -1.0], [-float("inf"), 0.0, -0.0],
+                        [1e30, 1e-30, 3.0]], device=dev)
+    sample = torch.cat([sample, odd])
+    accum = torch.cat([want, odd.flip(0)])
+    for frame in (0, 1, 5):
+        before = od.resolve_kernel.launches
+        got = od.resolve_kernel(sample, accum, frame, 0.25)
+        ref = od.resolve_reference(sample, accum, frame, 0.25)
+        assert od.resolve_kernel.launches == before + 1
+        assert (got[0] is sample) == (frame == 0)
+        _planes_equal({"accum": got[0], "display": got[1]},
+                      {"accum": ref[0], "display": ref[1]}, f"resolve, frame {frame}")
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_deferred_frames_on_the_pass_kernels_equal_plain_at_1080p(dev, textured):
+    """DeferredRenderer at 1920x1080 on courtyard_scene(8), four frames (frame
+    0's copy and three blends, the camera moved on the third) on the engine
+    "kernel" (the passes' kernels around K1/K2) and on "plain" (the torch
+    passes on the plain walks): the history, every returned frame and the
+    debug triptych bit for bit; per frame two K1 and two K2 launches, two
+    G-buffer, three lighting and one resolve kernel, and
+    rf.deferred.kernel_frames counts every frame (0 on "plain")."""
+    from rayfinder_tpu_torch.ops import deferred as od
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.deferred import DeferredRenderer
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.utils import profiling
+
+    flat, textures = courtyard_scene(8, textured=textured)
+    scene = build_device_scene(flat, textures=textures, device=dev)
+    w, h = 1920, 1080
+    camera, sky = _bench_view(w, h)
+    sky = sky.state()
+    moved = create_camera([-15.5, 5.2, 0.4], [12, 2.5, -0.5], 0.0, 1.0, 70.0, w / h)
+    cams = [camera, camera, moved, moved]
+    counters = (walk.intersect_closest_kernel, walk.intersect_any_kernel, od.gbuffer_kernel,
+                od.lighting_kernel, od.resolve_kernel)
+    frames, accum, debug = {}, {}, {}
+    for engine in ("kernel", "plain"):
+        r = DeferredRenderer(scene, w, h, engine=engine)
+        before = [fn.launches for fn in counters]
+        with profiling.recording() as rec:
+            frames[engine] = [r.render(cam, sky, 0.25).copy() for cam in cams]
+        counted = [c.n for c in rec.records()
+                   if isinstance(c, profiling.Count) and c.name == profiling.KERNEL_FRAMES]
+        per_frame = [(fn.launches - b) / len(cams) for fn, b in zip(counters, before)]
+        if engine == "kernel":
+            assert per_frame == [2, 2, 2, 3, 1] and counted == [1] * 4
+        else:
+            assert per_frame == [0] * 5 and counted == [0] * 4
+        accum[engine] = r.accum
+        with np.errstate(invalid="ignore"):
+            debug[engine] = r.render_debug(moved)
+    assert torch.equal(accum["kernel"].view(torch.int32), accum["plain"].view(torch.int32))
+    for got, want in zip(frames["kernel"], frames["plain"]):
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not np.array_equal(frames["kernel"][1], frames["kernel"][2])
+    np.testing.assert_array_equal(debug["kernel"], debug["plain"])
+
+
+def test_warm_deferred_frame_is_at_most_16_device_operations(dev, scene8, tmp_path):
+    """Under torch.profiler one warm 1920x1080 deferred frame on the default
+    engine issues at most 16 device operations (kernels, copies, fills: the
+    chrome trace's events as portbench/trace.py counts them) and copies
+    nothing from the host to the card."""
+    import json
+
+    from rayfinder_tpu_torch.render.deferred import DeferredRenderer
+    from rayfinder_tpu_torch.utils import profiling
+
+    w, h = 1920, 1080
+    camera, sky = _bench_view(w, h)
+    sky = sky.state()
+    r = DeferredRenderer(scene8, w, h)
+    for _ in range(3):
+        r.render(camera, sky, 0.25)
+    torch.cuda.synchronize(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.render(camera, sky, 0.25)
+    profiling.PROFILED.take()
+    path = tmp_path / "frame.json"
+    prof.export_chrome_trace(str(path))
+    device_ops = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    print(f"{len(device_ops)} device operations: {device_ops}")
+    assert 0 < len(device_ops) <= 16
+    assert not [n for n in device_ops if "HtoD" in n]

@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax():
               "tools.viewer", "tools.render", "tools.turntable", "tools.bvh_visualizer",
               "tools.pt_format_tool", "tools.textractor", "tools.sun_integrator",
               "render.wavefront", "parallel.sharding", "tools.blue_noise_tool",
-              "tools.make_test_glb", "tools.bake_assets", "bench", "tools.make_quality_goldens"):
+              "tools.make_test_glb", "tools.bake_assets", "bench", "tools.make_quality_goldens",
+              "ops.deferred"):
         assert f"rayfinder_tpu_torch.{m}" in mods
     code = (
         "import os, sys\n"

@@ -24,7 +24,9 @@ from rayfinder_tpu_torch.scene.procedural import courtyard_scene
 from rayfinder_tpu_torch.sky.model import sky_on_device
 from rayfinder_tpu_torch.tools import viewer
 from rayfinder_tpu_torch.utils import profiling
-from rayfinder_tpu_torch.utils.profiling import D2H_BYTES, H2D_BYTES, PIXEL_TABLES, Count, Span
+from rayfinder_tpu_torch.utils.profiling import (
+    D2H_BYTES, H2D_BYTES, KERNEL_FRAMES, PIXEL_TABLES, Count, Span,
+)
 
 W, H = 32, 24
 SKY = Sky(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
@@ -167,7 +169,7 @@ def test_h2d_bytes_are_the_listed_uploads(scene, case, monkeypatch):
     with profiling.recording() as rec:
         step()
     counts = [c for c in rec.records() if isinstance(c, Count)]
-    assert {c.name for c in counts} <= {H2D_BYTES, D2H_BYTES, PIXEL_TABLES}
+    assert {c.name for c in counts} <= {H2D_BYTES, D2H_BYTES, PIXEL_TABLES, KERNEL_FRAMES}
     assert sum(c.n for c in counts if c.name == H2D_BYTES) == want()
     if case == "pt_split_batch":
         assert calls
