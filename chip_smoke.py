@@ -150,6 +150,18 @@ kernels from csrc/, then:
    ulp (the slab test's prune), counted. Then the gate: the bench exits 0
    with quality_ok, both default-route images of (b) pass it, the .pt
    one's numbers the bench's.
+13. (run after 12) a tree deeper than the 32-entry walk holds, at the main
+   path's shapes: the garden of the benchmark's pt_converge_1080p_garden
+   cell where portbench/cache/ holds its .pt (written by the cell's first
+   run), with the cell's view, else courtyard_scene(26) with
+   tests/torch_deep_scene.py's native_deep_positions chain in it; 262,144
+   of its 1920x1080 lanes (2,048 tiles of 128, spread over the image), the
+   launch counts set to 0 just before: K1 and K2 on their primary rays and
+   K2 on sun rays from their hits, equal to their plain versions bit for
+   bit; K1/K2 against brute force on every 8th primary ray, as in 12 (c);
+   K4 from their initial state at floor 0 for 8 samples, equal to a second
+   launch bit for bit, and for one sample to its plain version as in phase
+   6, its four counters to the plain version's exactly.
 
 Any failed check raises, so the script exits non-zero and prints no "ok"
 line. The line before the last is a JSON object of per-kernel numbers
@@ -1025,7 +1037,8 @@ def _dispatch_kernel_times(scene, sky, camera, tile, dev, card: str) -> dict:
 def _sass(library) -> dict:
     """{kernel: (SASS instructions, digest of the code)} of the built
     library, from cuobjdump -sass (empty where cuobjdump is missing), with
-    addresses and encodings stripped: equal digests mean equal code."""
+    addresses, encodings, labels and the trailing padding stripped: equal
+    digests mean equal code."""
     import hashlib
     import shutil
 
@@ -1037,8 +1050,15 @@ def _sass(library) -> dict:
     code = {}
     for part in out.split("Function : ")[1:]:
         name = re.search(r"[a-z_]+_kernel(?:I(?:L[a-z]\d+E)+E)?", part.split("\n", 1)[0])
-        lines = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in part.splitlines()[1:]]
-        lines = [line for line in lines if line and not line.startswith(".")]
+        # The instructions (the lines that start at an address): not the
+        # labels, nor the header of the next cubin that follows the last
+        # function of one in the listing.
+        lines = [re.sub(r"/\*[^*]*\*/", "", line).strip() for line in part.splitlines()[1:]
+                 if re.match(r"\s*/\*[0-9a-f]+\*/", line)]
+        # The NOPs that pad a function to its alignment depend on where the
+        # next one starts, not on its code.
+        while lines and lines[-1].startswith("NOP"):
+            lines.pop()
         if name:
             key = re.sub(r"I((?:L[a-z]\d+E)+)E", lambda m: "<" + ",".join(
                 re.findall(r"L[a-z](\d+)E", m.group(1))) + ">", name.group(0))
@@ -1173,6 +1193,18 @@ def _path_kernels(scene26, camera, sky, tile, dev, card: str, launches: dict) ->
           f"walks {work} [{card}]", flush=True)
     k4_err = _hold("K4", k4_names, k_out, p_out, ("sample", "bounce", "flag"), card)
     _require(torch.equal(k_out[0], p_out[0]), "K4: the survivors per tile differ from plain")
+    # K4's four counters, [closest, shadow] with the state and the walks'
+    # [records, tests] where the caller passes them, against its plain version's.
+    counters = {}
+    for name, fn in (("kernel", trace_regen_shaded), ("plain", trace_regen_shaded_reference)):
+        walk = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+        rays = fn(*args, records=walk[0], tests=walk[1])[-1]
+        counters[name] = torch.cat([rays, *walk]).tolist()
+    _require(counters["kernel"] == counters["plain"] and min(counters["kernel"]) > 0,
+             f"K4's counters [closest, shadow, records, tests] {counters['kernel']} against "
+             f"plain {counters['plain']}")
+    print(f"K4 counters [closest, shadow, records, tests]: {counters['kernel']}, equal to the "
+          f"plain version's [{card}]", flush=True)
 
     # K4 at the one-call route's shape: every lane from its initial state,
     # floor 0. Two launches must agree bit for bit (the lanes take their work
@@ -2965,6 +2997,197 @@ def _phase12(scene26, scene8, camera, dev, card: str) -> dict:
     return numbers
 
 
+# Phase 13: the deep tree at the main path's shapes. The lanes: DEEP_TILES of
+# a 1080p dispatch's 16,200 tiles of 128 lanes, spread evenly over the image;
+# K4 takes them from their initial state at floor 0 for the path-tracer
+# cells' batch of samples (render(8)), as the default route does. Its plain
+# version takes them for DEEP_PLAIN_SAMPLES: on the garden its rounds of
+# plane walks in torch took more than 7 minutes for 8 samples.
+DEEP_TILES = 2048
+DEEP_SIZE = (1920, 1080)
+DEEP_SAMPLES = dict(spp=1024, nf=8, num_bounces=4)
+DEEP_PLAIN_SAMPLES = 1
+GARDEN = "garden10m_tex_pt_1080p"
+
+
+def _deep_scene(dev, card: str) -> tuple:
+    """(label, scene, camera, sky) of phase 13: the garden (configuration
+    garden10m_tex_pt_1080p) from its .pt where portbench/cache/ holds it,
+    with its cell's view (the first pose of converge_garden), sky and lens;
+    else the slice's courtyard_scene(26) with native_deep_positions' chain
+    (tests/torch_deep_scene.py) placed in it, with the slice's camera and
+    sky. Either tree is deeper than the 32-entry walk holds."""
+    import numpy as np
+
+    from portbench import assets
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.scene import build_device_scene, load_device_scene
+    from rayfinder_tpu_torch.scene import FlattenedScene
+    from rayfinder_tpu_torch.scene.procedural import courtyard_scene
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    w, h = DEEP_SIZE
+    cfg = json.loads((ROOT / f"portbench/configs/{GARDEN}.json").read_text())
+    pt = assets.pt_path(cfg)
+    if pt.exists():
+        mix = json.loads((ROOT / "portbench/mixes/converge_garden.json").read_text())
+        (eye, look), cam, sky = mix["views"][0], cfg["camera"], cfg["sky"]
+        scene, secs = _timed(lambda: load_device_scene(pt, device=dev))
+        print(f"phase 13 scene: {GARDEN} from {pt.relative_to(ROOT)} "
+              f"({pt.stat().st_size} bytes), loaded in {secs:.1f} s [{card}]", flush=True)
+        return (GARDEN, scene,
+                create_camera(eye, look, cam["aperture"], cam["focus_distance"],
+                              cam["vfov_degrees"], w / h),
+                sky_state_from_ui(sky["turbidity"], tuple(sky["albedo"]),
+                                  sky["sun_zenith_degrees"], sky["sun_azimuth_degrees"]))
+    sys.path.insert(0, str(GOLDENS.parent))
+    from torch_deep_scene import native_deep_positions
+
+    flat, textures = courtyard_scene(26, textured=True)
+    # The chain's triangles grow from behind the slice's camera, 1 m up, in -x
+    # +y +z, away from its view: the large ones' boxes hold the courtyard, so
+    # that every walk descends the chain before it reaches the courtyard's
+    # faces.
+    chain = native_deep_positions() * np.float32([-1.0, 1.0, 1.0]) + np.float32([-18.0, 1.0, 0.0])
+    n = chain.shape[0]
+    e1, e2 = (chain[:, k].astype(np.float64) - chain[:, 0] for k in (1, 2))
+    normal = np.cross(e1, e2)
+    normal = (normal / np.linalg.norm(normal, axis=1, keepdims=True)).astype(np.float32)
+    deep = FlattenedScene(
+        positions=np.concatenate([flat.positions, chain]),
+        normals=np.concatenate([flat.normals, np.repeat(normal[:, None], 3, axis=1)]),
+        tex_coords=np.concatenate([flat.tex_coords, np.zeros((n, 3, 2), np.float32)]),
+        texture_indices=np.concatenate([flat.texture_indices,
+                                        np.zeros(n, flat.texture_indices.dtype)]))
+    scene, secs = _timed(lambda: build_device_scene(deep, textures=textures, device=dev))
+    print(f"phase 13 scene: courtyard_scene(26, textured) with a {n}-triangle chain (no "
+          f"{pt.relative_to(ROOT)}), built in {secs:.1f} s [{card}]", flush=True)
+    return ("courtyard26 with the chain", scene,
+            create_camera(*CAMERA, w / h), sky_state_from_ui(*SKY))
+
+
+def _deep_tree(tile, dev, card: str) -> dict:
+    """13: K1, K2 and K4 on a tree deeper than the 32-entry walk holds
+    (_deep_scene), at the main path's shapes: DEEP_TILES tiles of its 1080p
+    lanes. Their launch counts set to 0 just before, K1 on the lanes' primary
+    rays, K2 on them and on sun rays from their hits, K4 over the lanes from
+    their initial state at floor 0 for 8 samples (twice) and for
+    DEEP_PLAIN_SAMPLES (with its four counters); then K1/K2 held to their
+    plain versions bit for bit and to brute force on every
+    BRUTE_FORCE_STRIDE-th primary ray, K4 to a second launch bit for bit, and
+    at DEEP_PLAIN_SAMPLES to its plain version as phase 6 holds it (_hold:
+    its lanes take their work items in an order that varies), its counters
+    exactly."""
+    import numpy as np
+    import torch
+
+    from rayfinder_tpu_torch.ops.regen_shaded import (
+        trace_regen_shaded, trace_regen_shaded_reference,
+    )
+    from rayfinder_tpu_torch.ops.walk import (
+        intersect_any_kernel, intersect_any_reference, intersect_closest_kernel,
+    )
+    from rayfinder_tpu_torch.render import pathtracer as pt
+    from rayfinder_tpu_torch.render.intersect import T_MAX, brute_force_closest_hit
+    from rayfinder_tpu_torch.render.scene import DEEP_WALK_STACK, tree_depth
+    from rayfinder_tpu_torch.render.tiling import pixel_lanes
+
+    t_start = time.perf_counter()
+    label, scene, camera, sky = _deep_scene(dev, card)
+    depth = tree_depth(scene.bvh_tri_count.cpu().numpy(), scene.bvh_second_child.cpu().numpy())
+    print(f"phase 13 {label}: {scene.num_triangles} triangles, tree depth {depth}, walk stack "
+          f"{scene.walk_stack} [{card}]", flush=True)
+    _require(scene.walk_stack == DEEP_WALK_STACK, f"{label}: tree depth {depth} takes the "
+                                                  f"{scene.walk_stack}-entry walk")
+    w, h = DEEP_SIZE
+    u, v_tex, noise_base, inv_dims = pixel_lanes(w, h, tile)
+    tiles = torch.linspace(0, u.shape[0] // 128 - 1, DEEP_TILES, device=dev).round().long()
+    idx = (tiles[:, None] * 128 + torch.arange(128, device=dev)).reshape(-1)
+    lanes = dict(u=u[idx].contiguous(), v_tex=v_tex[idx].contiguous(),
+                 noise_base=noise_base[idx].contiguous())
+    n = idx.shape[0]
+    disp = pt._Dispatch(scene=scene, sky=sky, camera=camera, kernels=pt._ENGINES["kernel"],
+                        inv_dims=inv_dims, frame_base=0, spp=DEEP_SAMPLES["spp"],
+                        nf=DEEP_SAMPLES["nf"], num_bounces=DEEP_SAMPLES["num_bounces"])
+    st = pt._initial_state(disp, lanes, n, dev)
+    o, d = st["origin"], st["direction"]
+
+    def k4_args(nf):
+        return (*disp.pixel_args(lanes)[:-1], nf, disp.num_bounces, 0, T_MAX, st["sample"],
+                st["bounce"], st["flag"], o, d, st["thr"], st["srad"],
+                torch.zeros(n, 3, device=dev), st["shadow_o"], st["shadow_d"], st["contrib"])
+
+    def counted(fn):
+        walk = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+        out = fn(*k4_args(DEEP_PLAIN_SAMPLES), records=walk[0], tests=walk[1])
+        return out, torch.cat([out[-1], *walk]).tolist()
+
+    # The kernels, their launches counted from 0.
+    _zero_launches()
+    trace_regen_shaded.launches = 0
+    hit, t, tri, visits = intersect_closest_kernel(scene, o, d, T_MAX)
+    occ = intersect_any_kernel(scene, o, d, T_MAX)
+    sun = torch.from_numpy(np.asarray(sky.sun_direction, np.float32)).to(dev)
+    lit = torch.nonzero(hit)[:, 0]
+    so = (o[lit] + t[lit, None] * d[lit] + 1e-3 * sun).contiguous()
+    sd = sun.expand(so.shape[0], 3).contiguous()
+    s_occ = intersect_any_kernel(scene, so, sd, T_MAX)
+    k4_out, k4_secs = _timed(lambda: trace_regen_shaded(*k4_args(DEEP_SAMPLES["nf"])))
+    k4_again = trace_regen_shaded(*k4_args(DEEP_SAMPLES["nf"]))
+    k4_one, k4_counts = counted(trace_regen_shaded)
+    torch.cuda.synchronize()
+    launches = {**_launch_counts(), "K4": trace_regen_shaded.launches}
+    print(f"phase 13 launches: {launches} [{card}]", flush=True)
+    _require(launches == {**_counts(1, 2), "K4": 3}, f"{label}: launches {launches}")
+
+    # Their plain versions, and brute force.
+    walks = _check_walks(scene, o, d, f"phase 13 {label}, {n} primary rays of {w}x{h}")
+    _require(torch.equal(walks["t"], t) and torch.equal(walks["tri"], tri)
+             and torch.equal(walks["occ"], occ), f"{label}: K1/K2 differ between launches")
+    s_plain = intersect_any_reference(scene, so, sd, T_MAX)
+    print(f"phase 13 {label}: K2 == plain on {so.shape[0]} sun rays from the hits: "
+          f"{torch.equal(s_occ, s_plain)}; occluded {float(s_occ.float().mean()):.4f} "
+          f"[{card}]", flush=True)
+    _require(torch.equal(s_occ, s_plain), f"{label}: K2 differs from plain on the sun rays")
+    pick = slice(None, None, BRUTE_FORCE_STRIDE)
+    (bhit, bt, btri), b_secs = _timed(lambda: brute_force_closest_hit(
+        o[pick].contiguous(), d[pick].contiguous(), scene.tri_positions, T_MAX))
+    brute = _brute_force_categories(hit[pick], t[pick], tri[pick], occ[pick], bhit, bt, btri)
+    print(f"phase 13 K1/K2 against brute force, {label}: {brute['rays']} rays x "
+          f"{scene.num_triangles} triangles in {b_secs:.1f} s; hit {float(bhit.float().mean()):.4f}"
+          f"; differ {brute['differ']}: ties {brute['tie']}, brute force nearer by <= "
+          f"{BRUTE_FORCE_ULPS} ulp {brute['prune']}, other {brute['other'][:20]} [{card}]",
+          flush=True)
+    for r in brute["other"][:20]:
+        k = r * BRUTE_FORCE_STRIDE
+        print(f"  ray {k}: K1 hit {bool(hit[k])} t {float(t[k])!r} tri {int(tri[k])}, K2 "
+              f"{bool(occ[k])}; brute force hit {bool(bhit[r])} t {float(bt[r])!r} tri "
+              f"{int(btri[r])}", flush=True)
+    _require(not brute["other"], f"{label}: K1/K2 differ from brute force on rays "
+                                 f"{brute['other'][:20]}")
+    _equal(f"phase 13 K4 at floor 0, {DEEP_SAMPLES['nf']} samples, {label}", K4_OUTPUTS, k4_out,
+           k4_again, card, other="a second launch")
+    (p4_out, p4_counts), p4_secs = _timed(lambda: counted(trace_regen_shaded_reference))
+    exact = torch.ones(n, dtype=torch.bool, device=dev)
+    for a, b in zip(k4_one[:len(K4_OUTPUTS)], p4_out):
+        exact &= (a == b) if a.dim() == 1 else (a == b).all(dim=1)
+    print(f"phase 13 K4 at floor 0, {label}: {n} lanes x {DEEP_SAMPLES['nf']} samples in "
+          f"{k4_secs:.3f} s; x {DEEP_PLAIN_SAMPLES} (plain {p4_secs:.1f} s): lanes equal to "
+          f"plain on every output {int(exact.sum())} of {n}; counters [closest, shadow, "
+          f"records, tests] {k4_counts}, plain {p4_counts} [{card}]", flush=True)
+    k4_err = _hold(f"phase 13 K4 at floor 0, {label}", K4_OUTPUTS, k4_one, p4_out,
+                   ("sample", "bounce", "flag"), card)
+    _require(k4_counts == p4_counts and min(k4_counts) > 0,
+             f"{label}: K4's counters {k4_counts} against plain {p4_counts}")
+    secs = time.perf_counter() - t_start
+    print(f"phase 13: {secs:.1f} s", flush=True)
+    return {"scene": label, "triangles": scene.num_triangles, "tree_depth": depth,
+            "walk_stack": scene.walk_stack, "lanes": n, "launches": launches,
+            "sun_rays": so.shape[0], "k4_counters": k4_counts, "k4_exact_lanes": int(exact.sum()),
+            "k4_max_abs_err": k4_err, "k4_seconds": k4_secs, "k4_plain_seconds": p4_secs,
+            "brute_force": {**brute, "seconds": b_secs}, "seconds": secs}
+
+
 def _street_line(dev) -> None:
     """The benchmark's production-size street (portbench/scenes/street.py,
     configuration street2m8_tex_pt_1080p) through the asset path: its .pt
@@ -3251,6 +3474,11 @@ def main(argv=None) -> int:
         # are not counted here.
         phase12 = _phase12(scene26, scene8, camera, dev, card)
 
+    deep_tree = {}
+    if full:
+        # --- 13. a tree deeper than the 32-entry walk, at the main path's shapes
+        deep_tree = _deep_tree(tile, dev, card)
+
     kernels = [*walk_entries, *path_entries, *eff_entries, k8_entry,
                *deferred_numbers.get("full_hd", {}).get("kernel_entries", [])]
     print(f"total {time.perf_counter() - t_start:.1f} s from the start of the build",
@@ -3275,6 +3503,7 @@ def main(argv=None) -> int:
         "deferred": deferred_numbers,
         "phase11": phase11,
         "phase12": phase12,
+        "deep_tree": deep_tree,
         "l2_bytes_per_s": L2_RATE["bytes_per_s"],
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

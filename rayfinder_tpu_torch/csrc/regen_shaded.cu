@@ -64,14 +64,20 @@
 // one closest segment per closest walk, one NEE shadow ray per surface hit,
 // counted at the hit (not where add_nee resolves it, so that a sample whose
 // NEE crosses a call boundary is counted once); and the interior records
-// that their walks read, closest and shadow (traverse2.cuh CountedView,
-// walk_packed's counting level 1), which tells a walk that reads more
-// records from one whose records cost more. A thread keeps three counters;
-// at its end each warp adds its sums to a (3,) int64 tensor with one
-// atomicAdd per counter. Integer sums: any order gives the same totals.
+// that their walks read and the triangles they test, closest and shadow
+// (traverse2.cuh CountedView, walk_packed's counting level 2), which tell a
+// walk that reads more records from one whose records cost more, and a walk
+// whose leaves hold more triangles that it tests from one that reads more
+// records. A thread keeps four counters; at its end each warp adds its sums
+// to a (4,) int64 tensor with one atomicAdd per counter. Integer sums: any
+// order gives the same totals.
 //
 // What bounds both: the two BVH walks per round, which diverge (lanes of a
 // warp are at different nodes of different paths).
+//
+// Both come with walks of a 32-entry stack and, for a tree deeper than those
+// hold, of 64 (traverse.cuh kDeepStack): the entry point takes the scene's
+// stack (render/scene.py walk_stack) and launches those kernels.
 
 #include "shade.cuh"
 
@@ -138,28 +144,36 @@ __device__ __forceinline__ void shade_no_hit(const rf::ShadeView& sh, const rf::
             &st->shadow_o, &st->shadow_d, &st->contrib);
 }
 
-// Add a warp's counts to ray_counts = [closest, shadow, records]. Every
-// thread of the warp calls it. A thread's records stay below 2^32 (a few
-// hundred records a ray); the warp's sum is taken in 64 bits.
+// Add a warp's counts to ray_counts = [closest, shadow, records, tests].
+// Every thread of the warp calls it. A thread's records and tests stay below
+// 2^32 (a few hundred a ray); the warp's sums are taken in 64 bits.
+__device__ __forceinline__ unsigned long long warp_sum64(unsigned x) {
+  unsigned long long sum = x;
+  for (int lane = 16; lane > 0; lane >>= 1) sum += __shfl_down_sync(kFullWarp, sum, lane);
+  return sum;
+}
+
 __device__ __forceinline__ void add_ray_counts(unsigned closest, unsigned shadow,
-                                               unsigned records,
+                                               unsigned records, unsigned tests,
                                                unsigned long long* ray_counts) {
   closest = __reduce_add_sync(kFullWarp, closest);
   shadow = __reduce_add_sync(kFullWarp, shadow);
-  unsigned long long rec = records;
-  for (int lane = 16; lane > 0; lane >>= 1) rec += __shfl_down_sync(kFullWarp, rec, lane);
+  const unsigned long long rec = warp_sum64(records);
+  const unsigned long long tri = warp_sum64(tests);
   if ((threadIdx.x & 31) == 0) {
     atomicAdd(ray_counts, static_cast<unsigned long long>(closest));
     atomicAdd(ray_counts + 1, static_cast<unsigned long long>(shadow));
     atomicAdd(ray_counts + 2, rec);
+    atomicAdd(ray_counts + 3, tri);
   }
 }
 
+template <int kStack>
 __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
     rf::PackedView view, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
     unsigned long long* __restrict__ ray_counts) {
-  unsigned records = 0;  // records read by this thread's walks
-  const rf::CountedView<rf::PackedView> s{view, &records};
+  unsigned records = 0, tests = 0;  // records read, triangles tested by this thread's walks
+  const rf::CountedView<rf::PackedView, kStack> s{view, &records, &tests};
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = i < n;
   const int nf = p.num_frames;
@@ -222,7 +236,7 @@ __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_tile_kernel(
     store_state(out, i, sample, st);
     rf::store3(out.lrad, i, lrad);
   }
-  add_ray_counts(closest, shadow, records, ray_counts);
+  add_ray_counts(closest, shadow, records, tests, ray_counts);
 }
 
 // Resident blocks per SM that the items kernel is compiled for.
@@ -233,12 +247,14 @@ constexpr int kItemBlocksPerSm = 7;
 // 1.06x, all 32 no gain), while the tile kernel lost 12-25% with any.
 constexpr int kItemSharedEntries = 12;
 
+template <int kStack>
 __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shaded_items_kernel(
     rf::PackedView view, rf::ShadeView sh, rf::RegenParams p, int n, LaneIn in, LaneOut out,
     float* __restrict__ rad, unsigned long long* __restrict__ counter,
     unsigned long long* __restrict__ ray_counts) {
-  unsigned records = 0;  // records read by this thread's walks
-  const rf::CountedView<rf::SharedStackView<kItemSharedEntries>> s{{view}, &records};
+  unsigned records = 0, tests = 0;  // records read, triangles tested by this thread's walks
+  const rf::CountedView<rf::SharedStackView<kItemSharedEntries>, kStack> s{
+      {view}, &records, &tests};
   const int warp_lane = threadIdx.x & 31;
   const int nf = p.num_frames;
   const unsigned long long total = static_cast<unsigned long long>(n) * nf;
@@ -314,7 +330,7 @@ __global__ void __launch_bounds__(rf::kBlock, kItemBlocksPerSm) trace_regen_shad
     }
   }
   // The counter ran out for the whole warp at once: its threads leave together.
-  add_ray_counts(closest, shadow, records, ray_counts);
+  add_ray_counts(closest, shadow, records, tests, ray_counts);
 }
 
 __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_fold_kernel(
@@ -342,11 +358,46 @@ __global__ void __launch_bounds__(rf::kBlock) trace_regen_shaded_fold_kernel(
   }
 }
 
+// The launches of one call, with walks of kStack entries.
+template <int kStack>
+int launch(const rf::PackedView& s, const rf::ShadeView& sh, const rf::RegenParams& params,
+           int n, const LaneIn& in, const LaneOut& out, float* sample_rad,
+           unsigned long long* item_counter, unsigned long long* ray_counts,
+           cudaStream_t stream) {
+  if (params.live_floor > 0) {
+    trace_regen_shaded_tile_kernel<kStack><<<rf::grid_for(n), rf::kBlock, 0, stream>>>(
+        s, sh, params, n, in, out, ray_counts);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // Floor 0: a persistent grid that fills the card, no wider than the items.
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, trace_regen_shaded_items_kernel<kStack>, rf::kBlock, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = static_cast<long long>(n) * params.num_frames;
+  const long long wanted = (items + rf::kBlock - 1) / rf::kBlock;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const int grid = static_cast<int>(wanted < resident ? (wanted > 0 ? wanted : 1) : resident);
+  trace_regen_shaded_items_kernel<kStack><<<grid, rf::kBlock, 0, stream>>>(
+      s, sh, params, n, in, out, sample_rad, item_counter, ray_counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trace_regen_shaded_fold_kernel<<<rf::grid_for(n), rf::kBlock, 0, stream>>>(sh, params, n, in,
+                                                                            out, sample_rad);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int rf_trace_regen_shaded(
     const float* aabb_min, const float* aabb_max, const int* tri_offset, const int* tri_count,
-    const int* nodes2, const float* tri_pos4, int num_tris, const float* attrs,
+    const int* nodes2, const float* tri_pos4, int num_tris, int stack, const float* attrs,
     const int* tex_desc, const int* texels, const rf::RegenParams* params, int n, const float* u,
     const float* v_tex, const float* noise_base, const int* sample, const int* bounce,
     const int* flag, const float* origin, const float* direction, const float* thr,
@@ -363,31 +414,10 @@ extern "C" int rf_trace_regen_shaded(
   const LaneOut out{sample_out, bounce_out, flag_out, origin_out,   direction_out, thr_out,
                     srad_out,   lrad_out,   shadow_o_out, shadow_d_out, contrib_out};
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (params->live_floor > 0) {
-    trace_regen_shaded_tile_kernel<<<rf::grid_for(n), rf::kBlock, 0, stream>>>(
-        s, sh, *params, n, in, out, ray_counts);
-    return static_cast<int>(cudaGetLastError());
+  if (stack == rf::kDeepStack) {
+    return launch<rf::kDeepStack>(s, sh, *params, n, in, out, sample_rad, item_counter,
+                                  ray_counts, stream);
   }
-  // Floor 0: a persistent grid that fills the card, no wider than the items.
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, trace_regen_shaded_items_kernel, rf::kBlock, 0);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long items = static_cast<long long>(n) * params->num_frames;
-  const long long wanted = (items + rf::kBlock - 1) / rf::kBlock;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  const int grid = static_cast<int>(wanted < resident ? (wanted > 0 ? wanted : 1) : resident);
-  trace_regen_shaded_items_kernel<<<grid, rf::kBlock, 0, stream>>>(
-      s, sh, *params, n, in, out, sample_rad, item_counter, ray_counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  trace_regen_shaded_fold_kernel<<<rf::grid_for(n), rf::kBlock, 0, stream>>>(sh, *params, n, in,
-                                                                            out, sample_rad);
-  return static_cast<int>(cudaGetLastError());
+  return launch<rf::kStackDepth>(s, sh, *params, n, in, out, sample_rad, item_counter,
+                                 ray_counts, stream);
 }

@@ -11,7 +11,10 @@
 // algorithm of the plain torch walk (rayfinder_tpu_torch/render/
 // traverse.py _walk): the same visit order, the same slab comparisons
 // against the best t so far, and the same behaviour when the stack is full
-// (a push at depth 32 is dropped, the pointer still moves). Every kernel
+// (a push at depth 32 is dropped, the pointer still moves). A scene whose
+// tree is deeper than that stack holds (render/scene.py: depth 34 to 65)
+// is walked by K1, K2 and K4 with a 64-entry stack instead (kDeepStack),
+// chosen by their wrappers from the scene, and by no other kernel. Every kernel
 // walks it over the packed tables (traverse2.cuh walk_packed); the walk
 // over the SoA planes that the kernels ran before lives on only in torch
 // (render/traverse.py _walk).
@@ -30,6 +33,7 @@
 namespace rf {
 
 constexpr int kStackDepth = 32;
+constexpr int kDeepStack = 64;
 constexpr float kEpsilon = 1e-5f;
 
 struct Vec3 {

@@ -78,8 +78,8 @@
 //   * a popped entry is taken iff its stored tmin < the best t: the only
 //     term of the test that depends on the bound, so the decision the plane
 //     walk makes when it tests the popped node again;
-//   * overflow as there: a push at depth 32 is dropped but the pointer
-//     still moves, and a pop reads slot min(sp, 31).
+//   * overflow as there: a push at depth 32 (kStack) is dropped but the
+//     pointer still moves, and a pop reads slot min(sp, 31).
 // Every triangle test then runs in the same order against the same bound.
 // A closest-hit walk makes as many slab tests as the plane walk visits
 // nodes (one for the root and two per record: each record is one push, and
@@ -165,22 +165,24 @@ __device__ __forceinline__ StackEntry* shared_stack() {
 // per record, the nodes the plane walk visits); 2 also the leaves entered
 // (a leaf entry taken: the plane walk's slab test passing on a leaf) and the
 // triangles tested (each Moller-Trumbore call), into *leaves_out and
-// *tests_out (K6). Counters above the level are compiled out, so a level
-// adds only its own. kShared: how many of the stack's first entries live in
-// shared memory (0: none; the block is kBlock threads).
-template <bool kAnyHit, int kCount = 0, int kShared = 0>
+// *tests_out (K6, and K4 with its leaves unread). Counters above the level
+// are compiled out, so a level adds only its own. kShared: how many of the
+// stack's first entries live in shared memory (0: none; the block is kBlock
+// threads). kStack: the stack's entries, kStackDepth or, for a deeper tree,
+// kDeepStack; the 32-entry walk is the code it was before the choice.
+template <bool kAnyHit, int kCount = 0, int kShared = 0, int kStack = kStackDepth>
 __device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, float* t_best_out,
                            int* records_out = nullptr, int* leaves_out = nullptr,
                            int* tests_out = nullptr) {
-  static_assert(kShared >= 0 && kShared <= kStackDepth, "the stack has kStackDepth entries");
-  constexpr int kLocal = kStackDepth - kShared;
+  static_assert(kShared >= 0 && kShared <= kStack, "the stack has kStack entries");
+  constexpr int kLocal = kStack - kShared;
   const Vec3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float t_best = t_max;
   int hit_tri = -1;
   int records = 0;
   int leaves = 0;
   int tests = 0;
-  StackEntry stack[kLocal > 0 ? kLocal : 1];  // entries kShared .. kStackDepth - 1
+  StackEntry stack[kLocal > 0 ? kLocal : 1];  // entries kShared .. kStack - 1
   StackEntry* shared = nullptr;               // entries 0 .. kShared - 1, kBlock apart
   if constexpr (kShared > 0) shared = shared_stack<kShared>();
   int sp = 0;
@@ -195,7 +197,7 @@ __device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, flo
       // Seek: pop until an entry to take.
       while (!take && sp > 0) {
         --sp;
-        const int slot = min(sp, kStackDepth - 1);
+        const int slot = min(sp, kStack - 1);
         StackEntry e;
         if constexpr (kShared == 0) {
           e = stack[slot];
@@ -224,7 +226,7 @@ __device__ int walk_packed(const PackedView& s, Vec3 o, Vec3 d, float t_max, flo
       const int count_r = m.w & 0x3FFFFFFF;
       const int axis = static_cast<int>(static_cast<unsigned>(m.w) >> 30);
       const bool axis_neg = component(inv, axis) < 0.0f;
-      if (sp < kStackDepth) {
+      if (sp < kStack) {
         const StackEntry far = axis_neg ? StackEntry{m.x, m.z, key_l}
                                         : StackEntry{m.y, count_r, key_r};
         if constexpr (kShared == 0) {
@@ -303,44 +305,55 @@ __device__ __forceinline__ bool any_hit(const SharedStackView<kShared>& s, Vec3 
   return walk_packed<true, 0, kShared>(s.view, o, d, t_max, &t) >= 0;
 }
 
-// The walk of a PackedView, or of a SharedStackView with its shared entries.
-template <bool kAnyHit, int kCount>
+// The walk of a PackedView, or of a SharedStackView with its shared
+// entries, with a stack of kStack entries.
+template <bool kAnyHit, int kCount, int kStack>
 __device__ __forceinline__ int walk_view(const PackedView& s, Vec3 o, Vec3 d, float t_max,
-                                         float* t_out, int* records) {
-  return walk_packed<kAnyHit, kCount, 0>(s, o, d, t_max, t_out, records);
+                                         float* t_out, int* records, int* leaves, int* tests) {
+  return walk_packed<kAnyHit, kCount, 0, kStack>(s, o, d, t_max, t_out, records, leaves, tests);
 }
 
-template <bool kAnyHit, int kCount, int kShared>
+template <bool kAnyHit, int kCount, int kStack, int kShared>
 __device__ __forceinline__ int walk_view(const SharedStackView<kShared>& s, Vec3 o, Vec3 d,
-                                         float t_max, float* t_out, int* records) {
-  return walk_packed<kAnyHit, kCount, kShared>(s.view, o, d, t_max, t_out, records);
+                                         float t_max, float* t_out, int* records, int* leaves,
+                                         int* tests) {
+  return walk_packed<kAnyHit, kCount, kShared, kStack>(s.view, o, d, t_max, t_out, records,
+                                                       leaves, tests);
 }
 
 // A view (PackedView or SharedStackView) whose walks also count the records
-// they read, at counting level 1, into the thread's running sum *records:
-// K4's walk counter. The walks are those of the view, step for step.
-template <class View>
+// they read and the triangles they test, at counting level 2 (its count of
+// leaves is left unread, so the compiler drops it), into the thread's
+// running sums *records and *tests: K4's walk counters. The walks are those
+// of the view, step for step, with a stack of kStack entries; the tests add
+// one increment per triangle test and nothing to a record step.
+template <class View, int kStack = kStackDepth>
 struct CountedView {
   View view;
   unsigned* records;
+  unsigned* tests;
 };
 
-template <class View>
-__device__ __forceinline__ int closest_hit(const CountedView<View>& s, Vec3 o, Vec3 d,
+template <class View, int kStack>
+__device__ __forceinline__ int closest_hit(const CountedView<View, kStack>& s, Vec3 o, Vec3 d,
                                            float t_max, float* t_out) {
-  int records;
-  const int tri = walk_view<false, 1>(s.view, o, d, t_max, t_out, &records);
+  int records, leaves, tests;
+  const int tri =
+      walk_view<false, 2, kStack>(s.view, o, d, t_max, t_out, &records, &leaves, &tests);
   *s.records += static_cast<unsigned>(records);
+  *s.tests += static_cast<unsigned>(tests);
   return tri;
 }
 
-template <class View>
-__device__ __forceinline__ bool any_hit(const CountedView<View>& s, Vec3 o, Vec3 d,
+template <class View, int kStack>
+__device__ __forceinline__ bool any_hit(const CountedView<View, kStack>& s, Vec3 o, Vec3 d,
                                         float t_max) {
   float t;
-  int records;
-  const bool hit = walk_view<true, 1>(s.view, o, d, t_max, &t, &records) >= 0;
+  int records, leaves, tests;
+  const bool hit =
+      walk_view<true, 2, kStack>(s.view, o, d, t_max, &t, &records, &leaves, &tests) >= 0;
   *s.records += static_cast<unsigned>(records);
+  *s.tests += static_cast<unsigned>(tests);
   return hit;
 }
 

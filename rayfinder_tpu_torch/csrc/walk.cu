@@ -37,6 +37,11 @@
 // from a counter 1-6% slower (PERF.md). K6 on
 // the plane walk read 0.085 ms on 262,144 coherent primaries.
 //
+// K1 and K2 come with a stack of 32 entries and, for a tree deeper than
+// those hold, of 64 (traverse.cuh kDeepStack): their entry points take the
+// scene's stack (render/scene.py walk_stack) and launch that walk. K6 walks
+// 32 entries.
+//
 // Plain C interface, loaded with ctypes (rayfinder_tpu_torch/ops/walk.py,
 // rayfinder_tpu_torch/ops/counted.py). Launches on the caller's stream;
 // returns cudaGetLastError().
@@ -51,7 +56,7 @@ constexpr int kSharedEntries = 16;
 // kCount 1 (K1): counts_out (B,) the nodes the plane walk visits, the root
 // and both children of a record. kCount 2 (K6): counts_out (B, 3) those
 // nodes, the leaves entered and the triangles tested.
-template <int kCount>
+template <int kCount, int kStack>
 __global__ void __launch_bounds__(rf::kBlock) closest_kernel(
     rf::PackedView s, const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ t_max, int n, float* __restrict__ t_out,
@@ -60,7 +65,7 @@ __global__ void __launch_bounds__(rf::kBlock) closest_kernel(
   if (i >= n) return;
   float t;
   int records, leaves, tests;
-  const int tri = rf::walk_packed<false, kCount, kSharedEntries>(
+  const int tri = rf::walk_packed<false, kCount, kSharedEntries, kStack>(
       s, rf::load3(origin, i), rf::load3(direction, i), t_max[i], &t, &records, &leaves,
       &tests);
   t_out[i] = t;
@@ -74,13 +79,14 @@ __global__ void __launch_bounds__(rf::kBlock) closest_kernel(
   }
 }
 
+template <int kStack>
 __global__ void __launch_bounds__(rf::kBlock) any_kernel(
     rf::PackedView s, const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ t_max, int n, bool* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t;
-  occ_out[i] = rf::walk_packed<true, 0, kSharedEntries>(
+  occ_out[i] = rf::walk_packed<true, 0, kSharedEntries, kStack>(
                    s, rf::load3(origin, i), rf::load3(direction, i), t_max[i], &t) >= 0;
 }
 
@@ -89,13 +95,19 @@ __global__ void __launch_bounds__(rf::kBlock) any_kernel(
 extern "C" int rf_intersect_closest(const float* aabb_min, const float* aabb_max,
                                     const int* tri_offset, const int* tri_count,
                                     const int* nodes2, const float* tri_pos4, int num_tris,
-                                    const float* origin, const float* direction,
+                                    int stack, const float* origin, const float* direction,
                                     const float* t_max, int n, float* t_out, int* tri_out,
                                     int* visits_out, void* stream) {
   const rf::PackedView s =
       rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
-  closest_kernel<1><<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, origin, direction, t_max, n, t_out, tri_out, visits_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stack == rf::kDeepStack) {
+    closest_kernel<1, rf::kDeepStack><<<rf::grid_for(n), rf::kBlock, 0, st>>>(
+        s, origin, direction, t_max, n, t_out, tri_out, visits_out);
+  } else {
+    closest_kernel<1, rf::kStackDepth><<<rf::grid_for(n), rf::kBlock, 0, st>>>(
+        s, origin, direction, t_max, n, t_out, tri_out, visits_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -108,19 +120,26 @@ extern "C" int rf_intersect_closest_counted(const float* aabb_min, const float* 
                                             void* stream) {
   const rf::PackedView s =
       rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
-  closest_kernel<2><<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, origin, direction, t_max, n, t_out, tri_out, counts_out);
+  closest_kernel<2, rf::kStackDepth>
+      <<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          s, origin, direction, t_max, n, t_out, tri_out, counts_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rf_intersect_any(const float* aabb_min, const float* aabb_max,
                                 const int* tri_offset, const int* tri_count, const int* nodes2,
-                                const float* tri_pos4, int num_tris, const float* origin,
-                                const float* direction, const float* t_max, int n, bool* occ_out,
-                                void* stream) {
+                                const float* tri_pos4, int num_tris, int stack,
+                                const float* origin, const float* direction, const float* t_max,
+                                int n, bool* occ_out, void* stream) {
   const rf::PackedView s =
       rf::make_packed(aabb_min, aabb_max, tri_offset, tri_count, nodes2, tri_pos4, num_tris);
-  any_kernel<<<rf::grid_for(n), rf::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, origin, direction, t_max, n, occ_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stack == rf::kDeepStack) {
+    any_kernel<rf::kDeepStack><<<rf::grid_for(n), rf::kBlock, 0, st>>>(s, origin, direction,
+                                                                       t_max, n, occ_out);
+  } else {
+    any_kernel<rf::kStackDepth><<<rf::grid_for(n), rf::kBlock, 0, st>>>(s, origin, direction,
+                                                                        t_max, n, occ_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,8 @@ import threading
 
 import torch
 
+from ..render.scene import WALK_STACK
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -51,16 +53,16 @@ _PACKED_ARGTYPES = [_P] * 6 + [_I]
 # texels.
 _SHADE_ARGTYPES = [_P] * 3
 _ARGTYPES = {
-    # ..., origin, direction, t_max, n, t, tri, visits, stream
-    "rf_intersect_closest": _PACKED_ARGTYPES + [_P, _P, _P, _I, _P, _P, _P, _P],
-    # ..., origin, direction, t_max, n, occ, stream
-    "rf_intersect_any": _PACKED_ARGTYPES + [_P, _P, _P, _I, _P, _P],
+    # ..., the walk's stack, origin, direction, t_max, n, t, tri, visits, stream
+    "rf_intersect_closest": _PACKED_ARGTYPES + [_I] + [_P, _P, _P, _I, _P, _P, _P, _P],
+    # ..., the walk's stack, origin, direction, t_max, n, occ, stream
+    "rf_intersect_any": _PACKED_ARGTYPES + [_I] + [_P, _P, _P, _I, _P, _P],
     # ..., params, n, 14 lane inputs, 9 outputs, stream
     "rf_trace_regen": _PACKED_ARGTYPES + [_P, _I] + [_P] * 23 + [_P],
-    # ..., shade tables, params, n, 14 lane inputs, 11 outputs, the samples'
-    # radiance scratch and the item counter (both null above floor 0), the
-    # ray counts, stream
-    "rf_trace_regen_shaded": (_PACKED_ARGTYPES + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25
+    # ..., the walk's stack, shade tables, params, n, 14 lane inputs, 11
+    # outputs, the samples' radiance scratch and the item counter (both null
+    # above floor 0), the ray counts, stream
+    "rf_trace_regen_shaded": (_PACKED_ARGTYPES + [_I] + _SHADE_ARGTYPES + [_P, _I] + [_P] * 25
                               + [_P, _P] + [_P] + [_P]),
     # ..., params, n, segs, 3 pixel + 6 slot inputs, 6 outputs, stream
     "rf_trace_regen_segs": _PACKED_ARGTYPES + [_P, _I, _I] + [_P] * 15 + [_P],
@@ -196,11 +198,18 @@ def _pointers(scene, device, tables) -> list:
     return args
 
 
-def packed_args(scene, device) -> list:
+def packed_args(scene, device, sized: bool = False) -> list:
     """The pointer and triangle-count arguments of the packed walk
     (csrc/traverse2.cuh), after checking its tables: the SoA planes that
     hold the root's box and leaf range, and the packed tables, which the
-    kernel reads with 16-byte loads."""
+    kernel reads with 16-byte loads. With `sized`, the entries of the
+    scene's walk stack follow (render/scene.py walk_stack): the kernels that
+    come with a walk of each size (K1, K2, K4) take it. The others walk
+    WALK_STACK entries, and raise for a scene whose tree needs more."""
+    if not sized and scene.walk_stack != WALK_STACK:
+        raise ValueError(
+            f"the scene's tree needs a walk of {scene.walk_stack} stack entries, which only "
+            f"K1, K2 and K4 (the default route, the ray queries, the deferred renderer) have")
     n, t = scene.num_nodes, scene.num_triangles
     args = _pointers(scene, device, (
         ("bvh_aabb_min", torch.float32, (n, 3)),
@@ -213,7 +222,7 @@ def packed_args(scene, device) -> list:
     for name in ("bvh_nodes2", "tri_pos4"):
         if getattr(scene, name).data_ptr() % 16:
             raise ValueError(f"scene.{name}: not 16-byte aligned")
-    return args + [t]
+    return args + [t, scene.walk_stack] if sized else args + [t]
 
 
 def shade_args(scene, device) -> list:

@@ -114,21 +114,27 @@ def primaries(camera, u, v_tex, noise_base, inv_dims, frame_base, spp, idx, samp
     return primary_ray(camera, u[idx], v_tex[idx], noise, inv_dims)
 
 
-def add_nee(scene, has_nee, srad, shadow_o, shadow_d, contrib, t_max, records=None):
+def add_nee(scene, has_nee, srad, shadow_o, shadow_d, contrib, t_max, records=None,
+            tests=None):
     """Resolve the pending NEE light samples (plain versions): where has_nee,
     srad + contrib * visible, the shadow ray traced only where the
     contribution is non-zero. With `records` (a (1,) int64 tensor), the
     shadow rays walk by the kernels' rule (intersect_packed, the same
     occlusion) and the interior records they read are added to it: one slab
-    test for the root and two per record."""
+    test for the root and two per record; with `tests` too, the triangles
+    they test are added to that."""
     occluded = torch.zeros(has_nee.shape[0], dtype=torch.bool, device=has_nee.device)
     shadow = torch.nonzero(has_nee & (contrib != 0.0).any(dim=1))[:, 0]
     if records is None:
         occluded[shadow] = intersect_any(scene, shadow_o[shadow], shadow_d[shadow], t_max)
     else:
-        occluded[shadow], _, _, tests = intersect_packed(
-            scene, shadow_o[shadow], shadow_d[shadow], t_max, any_hit=True)
-        records += ((tests.to(torch.int64) - 1) // 2).sum()
+        occluded[shadow], _, _, work = intersect_packed(
+            scene, shadow_o[shadow], shadow_d[shadow], t_max, any_hit=True,
+            count=tests is not None)
+        slabs = work if tests is None else work[:, 0]
+        records += ((slabs.to(torch.int64) - 1) // 2).sum()
+        if tests is not None:
+            tests += work[:, 2].sum(dtype=torch.int64)
     visible = torch.where(occluded, 0.0, 1.0)[:, None]
     return torch.where(has_nee[:, None], srad + contrib * visible, srad)
 

@@ -25,8 +25,9 @@ every lane's first sample in runs of `samples_per_call` samples, a call over
 lanes already in flight in chunks of `lanes_per_call` lanes (whole tiles).
 Both kernels count the rays they trace, and the call returns the counts
 with the lane state; they also count the interior records their walks read
-(closest and shadow: walk_packed's counting level 1), which the call adds to
-`records` where the caller passes one. The plain version
+and the triangles they test (closest and shadow: walk_packed's counting
+level 2), which the call adds to `records` and `tests` where the caller
+passes them. The plain version
 `trace_regen_shaded_reference` runs the same rounds in torch over the lanes
 of the tiles still running. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises.
@@ -42,7 +43,7 @@ from ..render.camera import Camera
 from ..render.rng import noise_of
 from ..render.scene import DeviceScene
 from ..render.shade import _nee_and_continuation
-from ..render.traverse import intersect_closest
+from ..render.traverse import intersect_closest, intersect_closest_counted
 from ..sky.model import SkyState, sky_on_device, sky_radiance_dir
 from . import _build
 from .regen import _params, add_nee, lane_inputs, primaries
@@ -79,7 +80,7 @@ def trace_regen_shaded(
     inv_dims: tuple[float, float], frame_base: int, spp: int, num_frames: int,
     num_bounces: int, live_floor: int, t_max: float,
     sample, bounce, flag, origin, direction, thr, srad, lrad,
-    shadow_o, shadow_d, contrib, records=None,
+    shadow_o, shadow_d, contrib, records=None, tests=None,
 ):
     """Run the path loop with in-kernel shading until each 128-lane tile
     (lanes 128k .. 128k+127) has at most `live_floor` lanes with samples left
@@ -91,14 +92,14 @@ def trace_regen_shaded(
     still live carry their pending NEE sample (flag 1 or 2) to the next
     call; and, last, the rays this call traced, (2,) int64 [closest,
     shadow]: one per closest segment, one per surface hit (its NEE shadow
-    ray, counted at the hit). `records`, a (1,) int64 tensor on the lanes'
-    device, gets the interior records that the call's walks read added to
-    it."""
+    ray, counted at the hit). `records` and `tests`, (1,) int64 tensors on the
+    lanes' device, get the interior records that the call's walks read and
+    the triangles they test added to them."""
     if u.device.type == "cpu":
         return trace_regen_shaded_reference(
             scene, camera, sky, u, v_tex, noise_base, inv_dims, frame_base, spp,
             num_frames, num_bounces, live_floor, t_max, sample, bounce, flag, origin,
-            direction, thr, srad, lrad, shadow_o, shadow_d, contrib, records,
+            direction, thr, srad, lrad, shadow_o, shadow_d, contrib, records, tests,
         )
     dev = u.device
     n = u.shape[0]
@@ -110,11 +111,11 @@ def trace_regen_shaded(
         *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)),
         *(torch.empty(n, 3, dtype=torch.float32, device=dev) for _ in range(8)),
     )
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # closest, shadow, records
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)  # closest, shadow, records, tests
     if n:
         params = _params(camera, sky, inv_dims, frame_base, spp, num_frames, t_max,
                          num_bounces=num_bounces, live_floor=live_floor)
-        tables = _build.packed_args(scene, dev) + _build.shade_args(scene, dev)
+        tables = _build.packed_args(scene, dev, sized=True) + _build.shade_args(scene, dev)
         # Floor 0: the work items' radiance scratch and their counter.
         scratch = None, None
         if live_floor <= 0:
@@ -137,7 +138,9 @@ def trace_regen_shaded(
         _build.raise_on_error(err, "rf_trace_regen_shaded")
         trace_regen_shaded.launches += 1
         if records is not None:
-            records.add_(counts[2:])
+            records.add_(counts[2:3])
+        if tests is not None:
+            tests.add_(counts[3:])
     return (*outputs, counts[:2])
 
 
@@ -151,14 +154,15 @@ def trace_regen_shaded_reference(
     inv_dims: tuple[float, float], frame_base: int, spp: int, num_frames: int,
     num_bounces: int, live_floor: int, t_max: float,
     sample, bounce, flag, origin, direction, thr, srad, lrad,
-    shadow_o, shadow_d, contrib, records=None,
+    shadow_o, shadow_d, contrib, records=None, tests=None,
 ):
     """Plain torch version of `trace_regen_shaded`, on any device. Same
     arguments and results; the rounds of csrc/regen_shaded.cu over the
-    lanes of the tiles still running. Given `records`, its walks count the
-    records that the kernel's read: a closest walk's from its plane walk's
-    visits (one node for the root and two per record), a shadow walk's from
-    the packed walk's plain version (ops/regen.py add_nee)."""
+    lanes of the tiles still running. Given `records` (and `tests`), its
+    walks count the records that the kernel's read (and the triangles they
+    test): a closest walk's from its plane walk's visits (one node for the
+    root and two per record) and tests, a shadow walk's from the packed
+    walk's plain version (ops/regen.py add_nee)."""
     nf = num_frames
     n = u.shape[0]
     dev = u.device
@@ -192,7 +196,7 @@ def trace_regen_shaded_reference(
 
         # 1. Pending NEE light sample of the previous segment.
         srad = add_nee(scene, live & (s["flag"] > 0), s["srad"], s["shadow_o"],
-                       s["shadow_d"], s["contrib"], t_max, records=records)
+                       s["shadow_d"], s["contrib"], t_max, records=records, tests=tests)
         # 2. Terminate after NEE: flush, finish the sample, regenerate.
         term = live & (s["flag"] == 2)
         lrad = torch.where(term[:, None], s["lrad"] + srad, s["lrad"])
@@ -203,8 +207,14 @@ def trace_regen_shaded_reference(
         # 3. One closest segment; a miss adds the sky, flushes, regenerates.
         flying = torch.nonzero(sample < nf)[:, 0]
         tri = torch.full_like(sample, -1)
-        hit, _, tri_f, visits = intersect_closest(scene, s["origin"][flying],
-                                                  s["direction"][flying], t_max)
+        if tests is None:
+            hit, _, tri_f, visits = intersect_closest(scene, s["origin"][flying],
+                                                      s["direction"][flying], t_max)
+        else:
+            hit, _, tri_f, work = intersect_closest_counted(
+                scene, s["origin"][flying], s["direction"][flying], t_max)
+            visits = work[:, 0]
+            tests += work[:, 2].sum(dtype=torch.int64)
         if records is not None:
             records += ((visits.to(torch.int64) - 1) // 2).sum()
         tri[flying] = tri_f

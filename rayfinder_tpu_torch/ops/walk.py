@@ -99,7 +99,7 @@ def closest_into(scene: DeviceScene, origin, direction, t_max, t, tri, visits) -
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_intersect_closest(
-                *_build.packed_args(scene, dev), origin.data_ptr(),
+                *_build.packed_args(scene, dev, sized=True), origin.data_ptr(),
                 direction.data_ptr(), t_max.data_ptr(), n, t.data_ptr(),
                 tri.data_ptr(), visits.data_ptr(), _build.stream_of(dev),
             )
@@ -122,7 +122,7 @@ def any_into(scene: DeviceScene, origin, direction, t_max, occ) -> None:
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.rf_intersect_any(
-                *_build.packed_args(scene, dev), origin.data_ptr(),
+                *_build.packed_args(scene, dev, sized=True), origin.data_ptr(),
                 direction.data_ptr(), t_max.data_ptr(), n, occ.data_ptr(),
                 _build.stream_of(dev),
             )

@@ -373,6 +373,8 @@ class _Dispatch:
     num_bounces: int
     # (1,) int64 to which each K4 call adds the records its walks read, or None.
     walk_records: torch.Tensor | None = None
+    # (1,) int64 to which each K4 call adds the triangles its walks test, or None.
+    walk_tests: torch.Tensor | None = None
 
     @functools.cached_property
     def device_sky(self) -> SkyState:
@@ -414,7 +416,8 @@ class _Dispatch:
     def shaded_call(self, st, lanes, lrad, live_floor, rays):
         """One K4 call down to `live_floor` live lanes per 128-lane tile; the
         rays it traced are added to `rays` ([closest, shadow])."""
-        counted = {} if self.walk_records is None else {"records": self.walk_records}
+        counted = {k: v for k, v in (("records", self.walk_records), ("tests", self.walk_tests))
+                   if v is not None}
         with profiling.span("rf.pt.k4", device=True):
             out = self.kernels.shaded(
                 *self.pixel_args(lanes), self.num_bounces, live_floor, T_MAX,
@@ -919,13 +922,14 @@ def accumulate_lanes_regen(
     segs: int = 1,
     sort: bool = False,
     walk_records: torch.Tensor | None = None,
+    walk_tests: torch.Tensor | None = None,
 ):
     """Regeneration accumulation over an arbitrary set of lanes, each with
     its pixel's data: centre u, v_tex (B,) f32 and blue-noise tile value
     noise_base (B, 2); accum (B, 3) holds the lanes' pixels. inv_dims: 1 /
     width, 1 / height as float32 values. The lane-level entry of
     accumulate_samples_regen (and of a render split across devices), with
-    its engines, routes, walk_records and return values."""
+    its engines, routes, walk_records, walk_tests and return values."""
     if engine not in _ENGINES and engine not in _UNFUSED:
         raise ValueError(
             f"unknown engine {engine!r}: the port has {sorted([*_ENGINES, *_UNFUSED])}"
@@ -943,7 +947,7 @@ def accumulate_lanes_regen(
     d = _Dispatch(
         scene=scene, sky=sky, camera=camera, kernels=_ENGINES.get(engine), inv_dims=inv_dims,
         frame_base=frame_base, spp=spp, nf=num_frames, num_bounces=num_bounces,
-        walk_records=walk_records,
+        walk_records=walk_records, walk_tests=walk_tests,
     )
     lanes = dict(u=u, v_tex=v_tex, noise_base=noise_base)
     if engine in _UNFUSED:
@@ -981,6 +985,7 @@ def accumulate_samples_regen(
     segs: int = 1,
     sort: bool = False,
     walk_records: torch.Tensor | None = None,
+    walk_tests: torch.Tensor | None = None,
 ):
     """Add samples frame_base .. frame_base + num_frames - 1 of every pixel
     into accum ((H*W, 3) f32, block-major pixel order, render/tiling.py)
@@ -995,7 +1000,8 @@ def accumulate_samples_regen(
     tensor on the scene's device, gets added the interior records that the
     walks of every K4 call (kernel or plain) read, closest and shadow: all
     of the dispatch's walks on the default route, those of the K4 phases on
-    the hybrid, none on the split and segs routes.
+    the hybrid, none on the split and segs routes; walk_tests likewise the
+    triangles those walks test.
 
     engine="kernel" drives the fused loop through the CUDA path kernels;
     engine="plain" through their plain torch versions (any device), by the
@@ -1036,7 +1042,7 @@ def accumulate_samples_regen(
         scene, sky, camera, frame_base, accum, *lanes,
         num_bounces=num_bounces, spp=spp, num_frames=num_frames, engine=engine,
         compact_floor=compact_floor, count_rays=count_rays, inkernel=inkernel, segs=segs,
-        sort=sort, walk_records=walk_records,
+        sort=sort, walk_records=walk_records, walk_tests=walk_tests,
     )
 
 

@@ -95,13 +95,14 @@ class Renderer:
 
     engine: "kernel" (default), "plain", "kernel_split" or "reference"; the
     accumulator is pick_accumulator's. count_rays: accumulate the exact
-    traced-segment counts in total_rays, and the interior records that K4's
+    traced-segment counts in total_rays, the interior records that K4's
     walks read (closest and shadow; every walk of the default route) in
-    total_walk_records, which each render() also adds to the counter
-    rf.walk_records (utils/profiling.py count). Only the regeneration loop
-    counts; where the scan form is picked (big scenes on the unfused
-    engines), both become None at the first render(), so that "not counted"
-    reads apart from 0."""
+    total_walk_records and the triangles they test in total_walk_tests,
+    which each render() also adds to the counters rf.walk_records and
+    rf.walk_tests (utils/profiling.py count), read back with the rays once a
+    dispatch. Only the regeneration loop counts; where the scan form is
+    picked (big scenes on the unfused engines), all three become None at the
+    first render(), so that "not counted" reads apart from 0."""
 
     def __init__(
         self,
@@ -115,6 +116,7 @@ class Renderer:
         self._count_rays = count_rays
         self.total_rays = 0 if count_rays else None
         self.total_walk_records = 0 if count_rays else None
+        self.total_walk_tests = 0 if count_rays else None
         self._tile = torch.from_numpy(blue_noise_tile()).to(scene.device)
         self._durations = collections.deque(maxlen=30)
         self._params = params
@@ -163,21 +165,24 @@ class Renderer:
                 counting = self._count_rays and accumulate is accumulate_samples_regen
                 if counting:
                     kw["count_rays"] = True
-                    kw["walk_records"] = torch.zeros(1, dtype=torch.int64,
-                                                     device=self.scene.device)
+                    for name in ("walk_records", "walk_tests"):
+                        kw[name] = torch.zeros(1, dtype=torch.int64, device=self.scene.device)
                 elif self._count_rays:
                     # counting unavailable on this path
-                    self.total_rays = self.total_walk_records = None
+                    self.total_rays = self.total_walk_records = self.total_walk_tests = None
                 out = accumulate(
                     self.scene, self._sky_state, p.camera, self._tile, self.frame_count,
                     self._accum, **kw,
                 )
                 if counting:
                     self._accum, rays = out
-                    closest, shadow, records = torch.cat([rays, kw["walk_records"]]).tolist()
+                    closest, shadow, records, tests = torch.cat(
+                        [rays, kw["walk_records"], kw["walk_tests"]]).tolist()
                     self.total_rays += closest + shadow
                     self.total_walk_records += records
+                    self.total_walk_tests += tests
                     profiling.count(profiling.WALK_RECORDS, records)
+                    profiling.count(profiling.WALK_TESTS, tests)
                 else:
                     self._accum = out
                 self.accumulated_sample_count += to_add

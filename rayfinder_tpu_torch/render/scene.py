@@ -8,7 +8,10 @@ one thread per ray.
 
 Texels are stored as the int32 view of the packed BGRA uint32 words, because
 torch's uint32 supports few operations; shifts and masks on the int32 view
-(`(w >> 16) & 0xFF`) give the same bytes.
+(`(w >> 16) & 0xFF`) give the same bytes. The atlas may hold up to 2**31 - 1
+texels (MAX_TEXELS), the range of the int32 index that every fetch computes:
+the reference's 256 MiB is its WebGPU storage-buffer binding limit, and on
+the card the atlas is a plain allocation that no such limit binds.
 
 Beside the SoA node planes, the upload builds the packed walk tables that
 every CUDA kernel that walks the BVH reads (K1-K6, K8; csrc/traverse2.cuh)
@@ -61,9 +64,27 @@ from ..bvh.clusters import DEFAULT_LEAF_SIZE, build_clusters, treelet_ranges
 from ..scene import FlattenedScene, Texture
 from ..utils import profiling
 
-# Packed-texel-atlas budget, as in rayfinder_tpu.render.scene (the
-# reference's storage-buffer binding limit for its texture buffer).
-MAX_TEXEL_BYTES = 256 * 1024 * 1024
+# Packed-texel-atlas budget: the texels that an int32 index reaches. The
+# JAX package and the reference keep 256 MiB, the reference's WebGPU
+# storage-buffer binding limit for its texture buffer; on the card the atlas
+# is a plain device allocation with no binding limit, and what bounds it is
+# the texel index: the descriptors' offsets are int32 (`tex_desc`) and the
+# fetches compute `offset + i * width + j` in int32 (csrc/shade.cuh
+# albedo_of, render/texture_eval.py texel_bytes), exact for an atlas of up
+# to 2**31 - 1 texels (8 GiB).
+MAX_TEXELS = 2**31 - 1
+MAX_TEXEL_BYTES = 4 * MAX_TEXELS
+# The walks' stack (csrc/traverse.cuh kStackDepth, render/traverse.py
+# STACK_DEPTH): a walk holds one entry per interior node above the node it
+# is at, so a tree of depth d (nodes on its longest root-to-leaf path) needs
+# d - 1 entries. A push beyond the stack is dropped, and the walk would then
+# miss what lies under the dropped node. A tree deeper than WALK_STACK holds
+# is walked with DEEP_WALK_STACK entries (`DeviceScene.walk_stack`: the
+# plain walks, and K1, K2 and K4, which come with a walk of each size; the
+# other kernels raise for such a scene); a tree deeper than that does not
+# load.
+WALK_STACK = 32
+DEEP_WALK_STACK = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +128,10 @@ class DeviceScene:
     cluster_tri_map: torch.Tensor  # (C * L,) i32 padded slot -> real triangle
     cluster_start: torch.Tensor  # (C,) i32 first leaf-order triangle of each cluster
 
+    # The entries of the walks' stack that the tree needs: WALK_STACK or
+    # DEEP_WALK_STACK, chosen at load from its depth.
+    walk_stack: int = WALK_STACK
+
     @property
     def num_triangles(self) -> int:
         return self.tri_positions.shape[0]
@@ -131,7 +156,7 @@ class DeviceScene:
 
 def tensor_fields() -> list[str]:
     """The names of DeviceScene's tensor fields."""
-    return [f.name for f in dataclasses.fields(DeviceScene)]
+    return [f.name for f in dataclasses.fields(DeviceScene) if f.name != "walk_stack"]
 
 
 def _scene_arrays(
@@ -151,8 +176,9 @@ def _scene_arrays(
         total_bytes = int(sizes.sum()) * 4
         if total_bytes > MAX_TEXEL_BYTES:
             raise ValueError(
-                f"Texture atlas of {total_bytes} bytes exceeds the "
-                f"{MAX_TEXEL_BYTES} byte limit"
+                f"Texture atlas of {total_bytes} bytes ({total_bytes // 4} texels) exceeds "
+                f"the {MAX_TEXEL_BYTES} byte limit: the int32 texel index reaches "
+                f"{MAX_TEXELS} texels"
             )
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
         texels = np.concatenate([t.pixels for t in textures]).astype(np.uint32)
@@ -237,10 +263,44 @@ def _cluster_tables(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
                 cluster_start=clusters.start)
 
 
+def tree_depth(tri_count, second_child) -> int:
+    """The nodes on the longest root-to-leaf path of a tree in the node
+    planes' pre-order (node i's first child is i + 1, its second
+    `second_child[i]`; a node with tri_count > 0 is a leaf), level by level."""
+    count = np.asarray(tri_count)
+    second = np.asarray(second_child).astype(np.int64)
+    depth = 0
+    level = np.zeros(1, np.int64)
+    while level.size:
+        depth += 1
+        inner = level[count[level] <= 0]
+        level = np.concatenate([inner + 1, second[inner]])
+    return depth
+
+
+def _walk_stack(arrays: dict[str, np.ndarray]) -> int:
+    """The stack entries that the tree's walks need (WALK_STACK or
+    DEEP_WALK_STACK), from its depth, which is counted as
+    rf.scene.tree_depth; raises for a tree deeper than the larger stack
+    holds."""
+    depth = tree_depth(arrays["bvh_tri_count"], arrays["bvh_second_child"])
+    profiling.count(profiling.TREE_DEPTH, depth)
+    if depth - 1 <= WALK_STACK:
+        return WALK_STACK
+    if depth - 1 > DEEP_WALK_STACK:
+        raise ValueError(
+            f"BVH of depth {depth} needs {depth - 1} stack entries; the walks hold at most "
+            f"{DEEP_WALK_STACK} (trees of depth up to {DEEP_WALK_STACK + 1})"
+        )
+    return DEEP_WALK_STACK
+
+
 def _upload(arrays: dict[str, np.ndarray], device) -> DeviceScene:
-    """The walk and cluster tables built (span rf.scene.tables), then every
-    field copied to `device` (rf.scene.upload)."""
+    """The walks' stack chosen from the tree's depth and the walk and cluster
+    tables built (span rf.scene.tables), then every field copied to `device`
+    (rf.scene.upload)."""
     with profiling.span("rf.scene.tables"):
+        walk_stack = _walk_stack(arrays)
         arrays = {**arrays, **_walk_tables(arrays), **_cluster_tables(arrays)}
     fields = {}
     with profiling.span("rf.scene.upload"):
@@ -249,7 +309,7 @@ def _upload(arrays: dict[str, np.ndarray], device) -> DeviceScene:
             if name == "texels":
                 a = a.astype(np.uint32).view(np.int32)
             fields[name] = torch.from_numpy(np.array(a, order="C")).to(device)
-    return DeviceScene(**fields)
+    return DeviceScene(**fields, walk_stack=walk_stack)
 
 
 def build_device_scene(
@@ -260,7 +320,8 @@ def build_device_scene(
 ) -> DeviceScene:
     """Build the BVH (if not given) with the native builder, reorder the
     attributes into leaf order, pack textures into one atlas, and upload
-    everything to `device`."""
+    everything to `device`. A tree deeper than WALK_STACK entries hold is
+    walked with DEEP_WALK_STACK, and one deeper than that raises ValueError."""
     if bvh is None:
         from ..bvh.native import build_bvh_fast
 

@@ -1,7 +1,8 @@
 """Near-first BVH stack walk over ray batches, in torch.
 
 Counterpart of `rayfinder_tpu.render.traverse` (the JAX `reference` engine):
-each ray walks the flattened BVH with a 32-deep stack, near child first
+each ray walks the flattened BVH with a 32-deep stack (or, for a deeper
+tree, the 64 of the scene's `walk_stack`, render/scene.py), near child first
 (via `split_axis` and the direction's sign), leaf triangles in order -- the
 reference's own traversal (src/common/ray_intersection.cpp:138-213,
 reference_path_tracer.wgsl:370-429). The visit order, the `ray_aabb` bound
@@ -31,9 +32,10 @@ from __future__ import annotations
 import torch
 
 from .intersect import ray_aabb, ray_aabb_entry, ray_triangle
-from .scene import DeviceScene
+from .scene import WALK_STACK, DeviceScene
 
-STACK_DEPTH = 32
+# The stack's entries; a scene whose tree is deeper has its own (walk_stack).
+STACK_DEPTH = WALK_STACK
 
 _work = None
 
@@ -112,7 +114,8 @@ def _walk(scene: DeviceScene, origin, direction, t_max, any_hit: bool, count: bo
     visits = visits_full.clone()
     node = torch.zeros(batch, dtype=torch.long, device=dev)
     sp = torch.zeros(batch, dtype=torch.long, device=dev)
-    stack = torch.zeros(batch, STACK_DEPTH, dtype=torch.int32, device=dev)
+    entries = scene.walk_stack
+    stack = torch.zeros(batch, entries, dtype=torch.int32, device=dev)
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
 
     while lane.numel():
@@ -148,7 +151,7 @@ def _walk(scene: DeviceScene, origin, direction, t_max, any_hit: bool, count: bo
         second = scene.bvh_second_child[node].long()
         near = torch.where(axis_neg, second, node + 1)
         far = torch.where(axis_neg, node + 1, second)
-        push = torch.nonzero(descend & (sp < STACK_DEPTH))[:, 0]
+        push = torch.nonzero(descend & (sp < entries))[:, 0]
         stack[push, sp[push]] = far[push].to(torch.int32)
         sp = torch.where(descend, sp + 1, sp)
         node = torch.where(descend, near, node)
@@ -158,7 +161,7 @@ def _walk(scene: DeviceScene, origin, direction, t_max, any_hit: bool, count: bo
         done = done | (want_pop & (sp == 0))
         do_pop = want_pop & (sp > 0)
         sp = torch.where(do_pop, sp - 1, sp)
-        popped = torch.gather(stack, 1, sp.clamp(max=STACK_DEPTH - 1)[:, None])[:, 0]
+        popped = torch.gather(stack, 1, sp.clamp(max=entries - 1)[:, None])[:, 0]
         node = torch.where(do_pop, popped.long(), node)
 
         n_done = int(done.sum())
@@ -236,9 +239,10 @@ def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool
     size = torch.where(take, scene.bvh_tri_count[0].long(), 0)
     ref = torch.where(size > 0, scene.bvh_tri_offset[0].long(), 0)
     sp = torch.zeros(batch, dtype=torch.long, device=dev)
-    stack_ref = torch.zeros(batch, STACK_DEPTH, dtype=torch.long, device=dev)
-    stack_count = torch.zeros(batch, STACK_DEPTH, dtype=torch.long, device=dev)
-    stack_key = torch.zeros(batch, STACK_DEPTH, dtype=torch.float32, device=dev)
+    entries = scene.walk_stack
+    stack_ref = torch.zeros(batch, entries, dtype=torch.long, device=dev)
+    stack_count = torch.zeros(batch, entries, dtype=torch.long, device=dev)
+    stack_key = torch.zeros(batch, entries, dtype=torch.float32, device=dev)
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
 
     while lane.numel():
@@ -272,7 +276,7 @@ def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool
             far = (torch.where(axis_neg, left_ref, right_ref),
                    torch.where(axis_neg, left_count, right_count),
                    torch.where(axis_neg, key_l, key_r))
-            push = torch.nonzero(sp[rec] < STACK_DEPTH)[:, 0]
+            push = torch.nonzero(sp[rec] < entries)[:, 0]
             slot = (rec[push], sp[rec[push]])
             stack_ref[slot], stack_count[slot], stack_key[slot] = (x[push] for x in far)
             sp[rec] += 1
@@ -285,7 +289,7 @@ def intersect_packed(scene: DeviceScene, origin, direction, t_max, any_hit: bool
             done[pop[empty]] = True
             pop = pop[~empty]
             sp[pop] -= 1
-            slot = (pop, sp[pop].clamp(max=STACK_DEPTH - 1))
+            slot = (pop, sp[pop].clamp(max=entries - 1))
             ref[pop], size[pop] = stack_ref[slot], stack_count[slot]
             take[pop] = stack_key[slot] < t_best[pop]
 

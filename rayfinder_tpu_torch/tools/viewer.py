@@ -266,8 +266,11 @@ def main(argv=None) -> int:
     with profiling.recording() as load:
         scene = load_scene(scene_arg, args.device, textured=True)
     print(f"scene: {scene.num_triangles} triangles; writing {args.output}")
+    records = load.records()
     phases = [f"{s.name.removeprefix('rf.scene.')}={1e3 * (s.t1 - s.t0):.0f}ms"
-              for s in load.records() if isinstance(s, profiling.Span)]
+              for s in records if isinstance(s, profiling.Span)]
+    phases += [f"tree_depth={c.n}" for c in records
+               if isinstance(c, profiling.Count) and c.name == profiling.TREE_DEPTH]
     if phases:
         print("scene load: " + " ".join(phases))
 

@@ -32,6 +32,10 @@ PIXEL_TABLES = "rf.pixel_tables"
 D2H_BYTES = "rf.d2h_bytes"
 # The interior BVH records that K4's walks read (Renderer(count_rays=True)).
 WALK_RECORDS = "rf.walk_records"
+# The triangle tests that K4's walks make (Renderer(count_rays=True)).
+WALK_TESTS = "rf.walk_tests"
+# The depth of a scene's BVH, counted once at its load (render/scene.py).
+TREE_DEPTH = "rf.scene.tree_depth"
 # Deferred frames whose passes ran as CUDA kernels (1 a frame that did, 0 one
 # that did not; render/deferred.py DeferredRenderer.render).
 KERNEL_FRAMES = "rf.deferred.kernel_frames"

@@ -182,13 +182,14 @@ def test_packed_walk_counts_equal_the_counted_walk(scenes, case):
     a Moller-Trumbore call), gives intersect_closest_counted's t, tri and
     three counts on every ray: on this file's rays and on the 40-level chain
     that overflows the 32-entry stack, to T_MAX and to per-ray bounds."""
-    from torch_deep_scene import deep_rays, deep_scene
+    from torch_deep_scene import deep_rays, deep_scene, walked_with_32
 
     if case == "courtyard":
         scene, (o, d) = scenes[0], _rays(2048)
     else:
         flat, bvh = deep_scene()
-        scene, (o, d) = build_device_scene(flat, bvh=bvh, device="cpu"), deep_rays(2048, seed=9)
+        scene = walked_with_32(build_device_scene(flat, bvh=bvh, device="cpu"))
+        o, d = deep_rays(2048, seed=9)
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     bound = torch.from_numpy(np.random.default_rng(3).uniform(0.5, 12.0, o.shape[0])
                              .astype(np.float32))

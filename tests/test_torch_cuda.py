@@ -63,7 +63,7 @@ def test_walk_kernels_equal_the_plane_walk(dev, scene8, scene_name):
     own plain version, to T_MAX and to per-ray bounds; on the courtyard, on
     a BVH deeper than the 32-entry stack and on a scene whose root is a
     leaf."""
-    from torch_deep_scene import deep_rays, deep_scene
+    from torch_deep_scene import deep_rays, deep_scene, walked_with_32
 
     from rayfinder_tpu_torch.ops import counted, walk
     from rayfinder_tpu_torch.render import traverse
@@ -78,7 +78,7 @@ def test_walk_kernels_equal_the_plane_walk(dev, scene8, scene_name):
         if scene_name == "one_triangle":
             flat, bvh = FlattenedScene(*(a[:1] for a in (
                 flat.positions, flat.normals, flat.tex_coords, flat.texture_indices))), None
-        scene = build_device_scene(flat, bvh=bvh, device=dev)
+        scene = walked_with_32(build_device_scene(flat, bvh=bvh, device=dev))
         o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(4096, seed=9))
     bound = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 12.0, o.shape[0])
                              .astype(np.float32)).to(dev)
@@ -341,7 +341,7 @@ def test_counted_kernel_walks_a_deep_and_a_one_leaf_scene(dev, scene_name):
     equal the plain plane walk's (intersect_closest_counted), and t, tri and
     nodes equal K1's, to T_MAX and to per-ray bounds, on a BVH deeper than
     the 32-entry stack and on a scene whose root is a leaf."""
-    from torch_deep_scene import deep_rays, deep_scene
+    from torch_deep_scene import deep_rays, deep_scene, walked_with_32
 
     from rayfinder_tpu_torch.ops import counted, walk
     from rayfinder_tpu_torch.render.intersect import T_MAX
@@ -352,7 +352,7 @@ def test_counted_kernel_walks_a_deep_and_a_one_leaf_scene(dev, scene_name):
     if scene_name == "one_triangle":
         flat, bvh = FlattenedScene(*(a[:1] for a in (
             flat.positions, flat.normals, flat.tex_coords, flat.texture_indices))), None
-    scene = build_device_scene(flat, bvh=bvh, device=dev)
+    scene = walked_with_32(build_device_scene(flat, bvh=bvh, device=dev))
     o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(4096, seed=9))
     bound = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 12.0, o.shape[0])
                              .astype(np.float32)).to(dev)
@@ -587,7 +587,7 @@ def test_path_kernels_walk_a_deep_and_a_one_leaf_scene(dev, segs):
     stack (the stack overflows) and on a one-triangle scene (the root is a
     leaf), against their plain versions, every slot's closest-hit and
     shadow ray through the chain."""
-    from torch_deep_scene import bvh_depth, deep_rays, deep_scene
+    from torch_deep_scene import bvh_depth, deep_rays, deep_scene, walked_with_32
 
     from rayfinder_tpu_torch.ops.regen import trace_regen, trace_regen_reference
     from rayfinder_tpu_torch.ops.regen_segs import trace_regen_segs, trace_regen_segs_reference
@@ -597,7 +597,7 @@ def test_path_kernels_walk_a_deep_and_a_one_leaf_scene(dev, segs):
     from rayfinder_tpu_torch.scene import FlattenedScene
 
     flat, bvh = deep_scene()
-    deep = build_device_scene(flat, bvh=bvh, device=dev)
+    deep = walked_with_32(build_device_scene(flat, bvh=bvh, device=dev))
     assert bvh_depth(bvh.triangle_count, bvh.second_child_offset) > 32
     one = FlattenedScene(positions=flat.positions[:1], normals=flat.normals[:1],
                          tex_coords=flat.tex_coords[:1], texture_indices=flat.texture_indices[:1])
@@ -704,7 +704,7 @@ def test_shaded_kernel_walks_a_deep_and_a_one_leaf_scene(dev, floor):
     """K4 on a BVH deeper than the 32-entry stack and on a one-triangle
     scene (the root is a leaf), against its plain version: every lane's
     pending shadow ray and first closest-hit ray go through the chain."""
-    from torch_deep_scene import bvh_depth, deep_rays, deep_scene
+    from torch_deep_scene import bvh_depth, deep_rays, deep_scene, walked_with_32
 
     from rayfinder_tpu_torch.ops.regen_shaded import (
         trace_regen_shaded, trace_regen_shaded_reference,
@@ -714,7 +714,7 @@ def test_shaded_kernel_walks_a_deep_and_a_one_leaf_scene(dev, floor):
     from rayfinder_tpu_torch.scene import FlattenedScene
 
     flat, bvh = deep_scene()
-    deep = build_device_scene(flat, bvh=bvh, device=dev)
+    deep = walked_with_32(build_device_scene(flat, bvh=bvh, device=dev))
     assert bvh_depth(bvh.triangle_count, bvh.second_child_offset) > 32
     one = FlattenedScene(positions=flat.positions[:1], normals=flat.normals[:1],
                          tex_coords=flat.tex_coords[:1], texture_indices=flat.texture_indices[:1])
@@ -1351,3 +1351,109 @@ def test_warm_deferred_frame_is_at_most_16_device_operations(dev, scene8, tmp_pa
     print(f"{len(device_ops)} device operations: {device_ops}")
     assert 0 < len(device_ops) <= 16
     assert not [n for n in device_ops if "HtoD" in n]
+
+
+@pytest.mark.parametrize("route", [dict(), dict(inkernel=True, compact_floor=16)])
+def test_k4_walk_counters_equal_plain(dev, textured4, route):
+    """K4's four counters, the [closest, shadow] rays and its walks'
+    [records, tests], the work items at floor 0 (the default route) and the
+    tile kernel above it (the hybrid's compacted phases): equal to its plain
+    version's on the textured courtyard, and the tests at least one a ray
+    that meets a leaf."""
+    counted = {}
+    for engine in ("kernel", "plain"):
+        walk = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+        _, rays = _regen(textured4, dev, 64, 48, 4, engine=engine, walk_records=walk[0],
+                         walk_tests=walk[1], **route)
+        counted[engine] = rays.tolist() + [int(w) for w in walk]
+    assert counted["kernel"] == counted["plain"]
+    closest, shadow, records, tests = counted["kernel"]
+    assert records > 0 and tests > 0
+
+
+def test_deep_tree_takes_the_64_entry_walks(dev):
+    """The 40-level chain of tests/torch_deep_scene.py loads with the
+    64-entry walk (walk_stack 64): K1 and K2 equal their plain versions and
+    brute force on rays that overflow the 32-entry stack, where the 32-entry
+    walks (walked_with_32) do not; K4's dispatch on it equals its plain
+    version's (counters and accumulation); K3, which walks 32 entries,
+    raises."""
+    import sys
+
+    from rayfinder_tpu_torch.ops import walk
+    from rayfinder_tpu_torch.render import intersect
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.intersect import T_MAX
+    from rayfinder_tpu_torch.render.pathtracer import accumulate_samples_regen
+    from rayfinder_tpu_torch.render.rng import blue_noise_tile
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    sys.path.insert(0, str(GOLDENS.parent))
+    from torch_deep_scene import deep_rays, deep_scene, walked_with_32
+
+    flat, bvh = deep_scene()
+    deep = build_device_scene(flat, bvh=bvh, device=dev)
+    shallow = walked_with_32(deep)
+    assert (deep.walk_stack, shallow.walk_stack) == (64, 32)
+    o, d = (torch.from_numpy(a).to(dev) for a in deep_rays(4096, seed=9))
+    hit, t, tri = intersect.brute_force_closest_hit(o, d, deep.tri_positions, T_MAX)
+    for scene, exact in ((deep, True), (shallow, False)):
+        got = walk.intersect_closest_kernel(scene, o, d, T_MAX)
+        want = walk.intersect_closest_reference(scene, o, d, T_MAX)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        occ = walk.intersect_any_kernel(scene, o, d, T_MAX)
+        assert torch.equal(occ, walk.intersect_any_reference(scene, o, d, T_MAX))
+        assert (torch.equal(got[2], tri) and torch.equal(got[1], t)) == exact
+        if exact:
+            assert torch.equal(occ, hit)
+    cam = create_camera([20.5, 0.3, 0.3], [0.0, 0.35, 0.35], 0.0, 1.0, 70.0, 4 / 3)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    tile = torch.from_numpy(blue_noise_tile()).to(dev)
+
+    def dispatch(engine, **kw):
+        walk_counts = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+        accum, rays = accumulate_samples_regen(
+            deep, sky, cam, tile, 0, torch.zeros(32 * 24, 3, device=dev), width=32, height=24,
+            num_bounces=4, spp=4, num_frames=4, engine=engine, count_rays=True,
+            walk_records=walk_counts[0], walk_tests=walk_counts[1], **kw)
+        return accum, rays.tolist() + [int(w) for w in walk_counts]
+
+    k_accum, k_counts = dispatch("kernel")
+    p_accum, p_counts = dispatch("plain")
+    assert k_counts == p_counts and k_counts[0] > 0
+    torch.testing.assert_close(k_accum, p_accum, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="64 stack entries"):
+        dispatch("kernel", inkernel=False)
+
+
+def test_atlas_past_256_mib_on_k4_and_the_deferred_kernels(dev):
+    """A texel atlas of 256 MiB and more (a 8192 x 8192 map packed before
+    the textured courtyard's 14, so that every map it samples lies past
+    2**26 texels): K4's default route and the deferred renderer's kernels
+    equal their plain versions on it."""
+    from rayfinder_tpu_torch.render.camera import create_camera
+    from rayfinder_tpu_torch.render.deferred import DeferredRenderer
+    from rayfinder_tpu_torch.render.scene import build_device_scene
+    from rayfinder_tpu_torch.scene import Texture
+    from rayfinder_tpu_torch.sky.model import sky_state_from_ui
+
+    flat, textures = courtyard_scene(8, textured=True)
+    big = Texture(np.full(8192 * 8192, 0xFF40C080, np.uint32), width=8192, height=8192)
+    flat = dataclasses.replace(flat, texture_indices=flat.texture_indices + 1)
+    scene = build_device_scene(flat, textures=[big, *textures], device=dev)
+    assert scene.texels.numel() * 4 > 256 * 2**20 and int(scene.tex_offset[1]) == 8192**2
+    w, h = 128, 96
+    k_accum, k_rays = _regen(scene, dev, w, h, 8)
+    p_accum, p_rays = _regen(scene, dev, w, h, 8, engine="plain")
+    assert torch.equal(k_rays, p_rays)
+    torch.testing.assert_close(k_accum, p_accum, rtol=1e-5, atol=1e-6)
+    cam = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0, 70.0, w / h)
+    sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
+    frames = {}
+    for engine in ("kernel", "plain"):
+        r = DeferredRenderer(scene, w, h, engine=engine)
+        frames[engine] = [r.render(cam, sky, 0.25).copy() for _ in range(2)]
+    for got, want in zip(frames["kernel"], frames["plain"]):
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -27,7 +27,7 @@ from rayfinder_tpu_torch.render.traverse import (
 )
 from rayfinder_tpu_torch.scene import FlattenedScene
 from rayfinder_tpu_torch.scene.procedural import courtyard_scene
-from torch_deep_scene import bvh_depth, deep_rays, deep_scene
+from torch_deep_scene import bvh_depth, deep_rays, deep_scene, walked_with_32
 
 GOLDENS = pathlib.Path(__file__).resolve().parent / "goldens"
 
@@ -58,7 +58,10 @@ def _scene(name: str):
 
 def _built(name: str):
     flat, textures, bvh = _scene(name)
-    return build_device_scene(flat, bvh=bvh, textures=textures, device="cpu")
+    scene = build_device_scene(flat, bvh=bvh, textures=textures, device="cpu")
+    # The chain overflows a 32-entry stack on purpose: the rule for a full
+    # stack is what the deep cases hold the walks to.
+    return walked_with_32(scene) if name == "deep" else scene
 
 
 @pytest.mark.parametrize("name", ["courtyard4", "courtyard8", "random"])

@@ -44,15 +44,22 @@ from rayfinder_tpu_torch.tools import make_quality_goldens
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 W, H, FRAMES = 48, 32, 2
 
-# Pixels whose paths hit the textured courtyard's +x wall, where the
-# interpolated UV u is 8.0 exactly: float32 rounding gives 8 -+ 5e-7, which
-# wraps to texel column 191 or 0 of a brick texture, and XLA's FMAs round
-# the other way than the port (tests/test_torch_shaded.py). With the wall's
-# u moved to 7.999 in both scenes (the "wall_u_7.999" case) every pixel
-# falls within the budget. Indices are into the image's pixel order (the
-# accumulator's block-major order).
-TEXEL_WRAP = [399, 453, 454, 473, 485, 500, 822, 920, 948]
+# The textured courtyard's +x wall has the UV u 8.0 exactly at every
+# vertex: interpolated, float32 rounding gives 8 -+ 5e-7, which wraps to
+# texel column 191 or 0 of a brick texture, and the two packages round it
+# apart where their arithmetic differs (XLA's FMAs, torch's CPU sqrt on some
+# builds; tests/test_torch_shaded.py), which depends on the host. With the
+# wall's u moved to 7.999 in both scenes (the "wall_u_7.999" case) every
+# pixel falls within the budget. As built, a pixel may fall outside it only
+# where the two packages read the wrap apart: each package's image is set
+# against its own images with the wall's u moved to either side of 8
+# (WALL_SIDES), and a pixel is excepted where the sides it matches differ
+# between the packages, or where in either it matches neither side (its
+# samples wrap both ways): 13 of the 1,536 pixels on one host, at most
+# MAX_WRAP_SHARE of them on any.
 WALL_U = np.float32(8.0)
+WALL_SIDES = (7.999, 8.001)
+MAX_WRAP_SHARE = 0.02
 
 
 @pytest.fixture
@@ -67,16 +74,8 @@ def jax_tool(monkeypatch, tmp_path):
     return module
 
 
-@pytest.mark.parametrize("wall_u", [None, 7.999], ids=["as_built", "wall_u_7.999"])
-def test_quality_image_matches_jax_reference(jax_tool, wall_u):
-    flat, textures = courtyard_scene(4, textured=True)
-    exceptions = TEXEL_WRAP
-    if wall_u is not None:
-        uv = flat.tex_coords.copy()
-        on_wall = uv[..., 0] == WALL_U
-        assert on_wall.any()
-        uv[on_wall, 0] = np.float32(wall_u)
-        flat, exceptions = dataclasses.replace(flat, tex_coords=uv), []
+def _quality_images(jax_tool, flat, textures):
+    """The port's and the JAX tool's quality images of a scene, (H*W, 3)."""
     sky, cam = scenes.BENCH_SKY, (*scenes.BENCH_CAMERA, W / H)
     want = jax_tool.quality_image(jax_build(flat, textures=textures), jax_sky(*sky),
                                   jax_camera(*cam), width=W, height=H, num_frames=FRAMES,
@@ -85,9 +84,39 @@ def test_quality_image_matches_jax_reference(jax_tool, wall_u):
         build_device_scene(flat, textures=textures, device="cpu"), sky_state_from_ui(*sky),
         create_camera(*cam), width=W, height=H, num_frames=FRAMES, engine="plain")
     assert got.shape == want.shape == (H, W, 3) and got.dtype == np.float32
-    got, want = got.reshape(-1, 3), want.reshape(-1, 3)
-    bad = np.nonzero(~np.isclose(got, want, rtol=2e-4, atol=1e-5).all(axis=1))[0]
-    assert set(bad.tolist()) <= set(exceptions), f"pixels {bad.tolist()} differ"
+    return got.reshape(-1, 3), np.asarray(want).reshape(-1, 3)
+
+
+def _outside_budget(a, b):
+    return ~np.isclose(a, b, rtol=2e-4, atol=1e-5).all(axis=1)
+
+
+def _wall_moved(flat, u):
+    uv = flat.tex_coords.copy()
+    on_wall = uv[..., 0] == WALL_U
+    assert on_wall.any()
+    uv[on_wall, 0] = np.float32(u)
+    return dataclasses.replace(flat, tex_coords=uv)
+
+
+@pytest.mark.parametrize("wall_u", [None, 7.999], ids=["as_built", "wall_u_7.999"])
+def test_quality_image_matches_jax_reference(jax_tool, wall_u):
+    flat, textures = courtyard_scene(4, textured=True)
+    if wall_u is None:
+        got, want = _quality_images(jax_tool, flat, textures)
+        # (pixels, side) within the budget of the package's image with the
+        # wall's u moved to that side.
+        sides = [_quality_images(jax_tool, _wall_moved(flat, u), textures) for u in WALL_SIDES]
+        port = np.stack([~_outside_budget(got, g) for g, _ in sides], axis=1)
+        jax = np.stack([~_outside_budget(want, w) for _, w in sides], axis=1)
+        apart = (port != jax).any(axis=1) | ~port.any(axis=1) | ~jax.any(axis=1)
+        exceptions = np.nonzero(apart)[0]
+    else:
+        got, want = _quality_images(jax_tool, _wall_moved(flat, wall_u), textures)
+        exceptions = np.zeros(0, np.int64)
+    bad = np.nonzero(_outside_budget(got, want))[0]
+    assert set(bad.tolist()) <= set(exceptions.tolist()), f"pixels {bad.tolist()} differ"
+    assert exceptions.size <= MAX_WRAP_SHARE * W * H, f"{exceptions.size} pixels wrap apart"
     keep = np.setdiff1d(np.arange(W * H), exceptions)
     np.testing.assert_allclose(got[keep], want[keep], rtol=2e-4, atol=1e-5)
 

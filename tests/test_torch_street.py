@@ -259,7 +259,8 @@ def test_split_route_reads_no_k4_records():
 
 def test_scene_load_spans(tmp_path):
     """load_device_scene names its phases: the .pt read, the walk and
-    cluster tables, the upload; a glTF's read takes its BVH build."""
+    cluster tables, the upload; a glTF's read takes its BVH build. Inside
+    the tables' span it counts the tree's depth (rf.scene.tree_depth)."""
     from rayfinder_tpu_torch.io import PtScene, write_pt
     from rayfinder_tpu_torch.render.scene import load_device_scene
     from rayfinder_tpu_torch.tools.export_glb import export_flattened_glb
@@ -273,9 +274,12 @@ def test_scene_load_spans(tmp_path):
     for path in (tmp_path / "street.pt", glb):
         with profiling.recording() as rec:
             scene = load_device_scene(path, device="cpu")
-        spans = [(s.name, s.parent) for s in rec.records()]
+        records = rec.records()
+        spans = [(s.name, s.parent) for s in records if isinstance(s, profiling.Span)]
         assert spans == [("rf.scene.read", None), ("rf.scene.tables", None),
                          ("rf.scene.upload", None)]
+        depth = [(c.name, records.index(c)) for c in records if isinstance(c, Count)]
+        assert depth == [(profiling.TREE_DEPTH, 2)]
         assert scene.num_triangles == sc.positions.shape[0]
     assert profiling.span("rf.scene.read") is profiling._OFF
 
@@ -314,14 +318,15 @@ def test_walk_counter_readers(monkeypatch, metric, want):
 
 def test_street_cell_is_listed():
     """The cell reports what its configuration's path tracer reports, and
-    the two new metrics read in the three path-tracer cells."""
+    the two new metrics read in the three path-tracer cells (and
+    walk_tests_per_ray, which came later, in every path-tracer cell)."""
     bench = cells.benchmark()
     cell = cells.find("pt_converge_1080p_street", bench)
     assert [m["name"] for m in cell.end_to_end] == ["msamples_per_s", "setup_s"]
     names = {m["name"] for m in cell.per_layer}
     assert {"walk_records_per_ray", "k4_ns_per_record", "k4_roofline", "rays_per_sample",
             "device_idle.converge", "pt_idle_prep_ms", "pt_idle_image_ms",
-            "h2d_mb_per_batch", "scene_load_s"} == names
+            "h2d_mb_per_batch", "scene_load_s", "walk_tests_per_ray"} == names
     for name in ("pt_converge_1080p", "pt_converge_1080p_b8"):
         assert {"walk_records_per_ray", "k4_ns_per_record"} <= {
             m["name"] for m in cells.find(name, bench).per_layer}

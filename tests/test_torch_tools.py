@@ -91,24 +91,29 @@ def test_turntable_matches_jax(glb, tmp_path, capsys):
     assert "frame: " in capsys.readouterr().out
 
 
-# Heat-map pixels whose camera ray differs from JAX's by an ulp and crosses
-# a node box's edge there: JAX's jnp.linalg.norm on the CPU is
-# sqrt(fma(z, z, fma(y, y, x * x))), the port's rounds each product (249 of
-# the 3,072 rays' directions differ by an ulp). On JAX's own rays the node
-# counts are equal (below).
-HEAT_NORM_ULP = [1805, 1939]
+# The camera rays of the two packages differ by an ulp or two in some
+# directions: JAX's jnp.linalg.norm on the CPU may be
+# sqrt(fma(z, z, fma(y, y, x * x))) where the port rounds each product, and
+# torch's CPU sqrt is not rounded to nearest on every build and CPU. Which
+# rays differ, and by how much, depends on the host (249 or 498 of the
+# 3,072, by at most 1 or 2 ulps, seen so far); a heat-map pixel
+# may differ only where its ray does and crosses a node box's edge there.
+# On JAX's own rays the node counts are equal (below).
+RAY_ULPS = 4
 
 
 def test_bvh_heat_map_equals_jax(glb, tmp_path):
     """K1's node counts (its plain version here) are the plane walk's, so the
-    heat map is JAX's but for the named pixels, and equal to JAX's node
-    counts on JAX's rays; the CLI writes it."""
+    heat map is JAX's but for pixels whose camera rays differ (by at most
+    RAY_ULPS in each component), and equal to JAX's node counts on JAX's
+    rays; the CLI writes it."""
     import jax.numpy as jnp
 
     from rayfinder_tpu.render.camera import generate_camera_ray as jax_ray
     from rayfinder_tpu.render.scene import load_device_scene as jax_load
     from rayfinder_tpu.render.traverse import intersect_closest as jax_closest
     from rayfinder_tpu_torch.ops.walk import intersect_closest_kernel
+    from rayfinder_tpu_torch.render.camera import generate_camera_ray
     from rayfinder_tpu_torch.render.scene import load_device_scene
 
     w, h = 64, 48
@@ -116,16 +121,21 @@ def test_bvh_heat_map_equals_jax(glb, tmp_path):
     want = jbvh.visualize(glb, w, h)
     assert got.dtype == np.uint8 and got.shape == (h, w, 3) and got.max() > got.min()
     differ = np.nonzero((got != want).any(axis=2).reshape(-1))[0].tolist()
-    assert set(differ) <= set(HEAT_NORM_ULP)
+    scene, jscene = load_device_scene(glb, device="cpu"), jax_load(glb)
+    camera = bvh_visualizer.heat_camera(scene, w, h)
+    u, v = bvh_visualizer.pixel_uv(w, h)
+    jo, jd = (np.array(a) for a in jax_ray(camera, u, v))
+    po, pd = (a.numpy() for a in generate_camera_ray(camera, torch.from_numpy(u),
+                                                    torch.from_numpy(v)))
+    assert np.array_equal(po, jo)
+    ulps = np.abs(pd.view(np.int32).astype(np.int64) - jd.view(np.int32))
+    assert ulps.max() <= RAY_ULPS
+    assert set(differ) <= set(np.nonzero(ulps.max(axis=1) > 0)[0].tolist())
     out = tmp_path / "heat.png"
     assert bvh_visualizer.main([str(glb), "-o", str(out), "--width", str(w), "--height", str(h),
                                 "--device", "cpu"]) == 0
     np.testing.assert_array_equal(read_png(out), got)
     # JAX's rays through K1's wrapper: JAX's node counts exactly.
-    scene, jscene = load_device_scene(glb, device="cpu"), jax_load(glb)
-    camera = bvh_visualizer.heat_camera(scene, w, h)
-    u, v = bvh_visualizer.pixel_uv(w, h)
-    jo, jd = (np.array(a) for a in jax_ray(camera, u, v))
     t_max = np.float32(np.finfo(np.float32).max)
     want_visits = np.asarray(jax_closest(jscene, jnp.asarray(jo), jnp.asarray(jd),
                                          jnp.float32(t_max))[3])

@@ -113,4 +113,5 @@ def test_viewer_main_runs_a_script(tmp_path, capsys):
                          "--script", str(script)]) == 0
     text = capsys.readouterr().out
     assert "triangles; writing" in text and "[1/2 spp" in text and "[deferred frame 1]" in text
+    assert "scene load: " in text and " tree_depth=" in text
     assert read_png(out).shape == (12, 16, 3)
